@@ -1,0 +1,94 @@
+"""GQA attention with RoPE, optional qk-norm and sliding windows.
+
+The counterpart of `repro/models/attention.py`'s training path: the
+masked softmax below `FLASH_THRESHOLD`, the online-softmax
+`flash_attention` at and above it.  Decode (serving) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.flash import flash_attention
+from repro_torch.models.layers import (
+    apply_rope, dense_init, init_rms, pdtype_of, rms_norm, rope_angles,
+)
+
+NEG_INF = -1e30
+# Above this sequence length the online-softmax path is used so the
+# (S, S) score matrix is never materialized.
+FLASH_THRESHOLD = 2048
+
+
+def init_attn(gen, cfg, device):
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pd = pdtype_of(cfg)
+    p = {
+        "wq": dense_init(gen, (D, H * hd), pd, device),
+        "wk": dense_init(gen, (D, KV * hd), pd, device),
+        "wv": dense_init(gen, (D, KV * hd), pd, device),
+        "wo": dense_init(gen, (H * hd, D), pd, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rms(hd, pd, device)
+        p["k_norm"] = init_rms(hd, pd, device)
+    return p
+
+
+def _project_qkv(p, cfg, x, positions):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _gqa_scores(q, k, cfg):
+    """q: (B,Sq,H,hd), k: (B,Sk,KV,hd) -> (B,KV,G,Sq,Sk) fp32 (products
+    of the working dtype are exact in fp32, as JAX's
+    preferred_element_type=float32)."""
+    B, Sq, H, hd = q.shape
+    KV = cfg.num_kv_heads
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    return s * (hd ** -0.5)
+
+
+def _mix(scores, v, cfg):
+    """scores: (B,KV,G,Sq,Sk) fp32, v: (B,Sk,KV,hd) -> (B,Sq,H*hd)."""
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    B, Sq = o.shape[0], o.shape[1]
+    return o.reshape(B, Sq, cfg.num_heads * cfg.head_dim)
+
+
+def attention(p, cfg, x, *, window, positions):
+    """Full-sequence attention (training).
+
+    window: int (FULL_WINDOW for global layers).
+    positions: (S,) integer tensor (contiguous from 0 for the flash path).
+    """
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    B, S = x.shape[0], x.shape[1]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if S >= FLASH_THRESHOLD:
+        qg = q.reshape(B, S, KV, H // KV, hd)
+        o = flash_attention(qg, k, v, window=window, causal=cfg.causal,
+                            block_q=max(512, S // 16),
+                            block_k=max(1024, S // 16))
+        return o.reshape(B, S, H * hd) @ p["wo"]
+    qpos = positions[:, None]
+    kpos = positions[None, :]
+    ok = (kpos - qpos < 1) if cfg.causal else \
+        torch.ones((S, S), dtype=torch.bool, device=x.device)
+    ok = ok & (qpos - kpos < window) & (kpos - qpos < window)
+    scores = _gqa_scores(q, k, cfg)
+    scores = torch.where(ok[None, None, None], scores,
+                         torch.full((), NEG_INF, device=x.device))
+    return _mix(scores, v, cfg) @ p["wo"]

@@ -1,0 +1,66 @@
+"""Flash-style (online-softmax) attention in plain PyTorch ops.
+
+The counterpart of `repro/models/flash.py` (plain jnp there, not a Pallas
+kernel): long sequences never materialize the (Sq, Sk) score matrix — live
+memory per step is one (bq, bk) tile.  Supports causal masking, windows
+and GQA.  The reference's banded mode (skipping KV blocks outside a static
+sliding window) belongs to the SWA archs, which are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _pick_block(n, target):
+    b = min(target, n)
+    while n % b:
+        b -= 1
+    return b
+
+
+def flash_attention(q, k, v, *, window, causal=True, block_q=512,
+                    block_k=1024):
+    """q: (B,Sq,KV,G,hd), k/v: (B,Sk,KV,hd); window: int.
+    Returns (B,Sq,KV,G,hd) in q.dtype.
+    """
+    B, Sq, KV, G, hd = q.shape
+    Sk = k.shape[1]
+    bq = _pick_block(Sq, block_q)
+    bk = _pick_block(Sk, block_k)
+    nq, nk = Sq // bq, Sk // bk
+    scale = hd ** -0.5
+    dev = q.device
+    neg = torch.full((), NEG_INF, device=dev)
+
+    outs = []
+    for iq in range(nq):
+        q_i = q[:, iq * bq:(iq + 1) * bq].float()
+        qpos = iq * bq + torch.arange(bq, device=dev)
+        m = torch.full((B, KV, G, bq), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, bq), device=dev)
+        acc = torch.zeros((B, KV, G, bq, hd), device=dev)
+        for ik in range(nk):
+            k_i = k[:, ik * bk:(ik + 1) * bk]
+            v_i = v[:, ik * bk:(ik + 1) * bk]
+            kpos = ik * bk + torch.arange(bk, device=dev)
+            s = torch.einsum("bqkgh,bskh->bkgqs", q_i, k_i.float()) * scale
+            ok = torch.ones((bq, bk), dtype=torch.bool, device=dev)
+            if causal:
+                ok = ok & (kpos[None, :] <= qpos[:, None])
+            ok = ok & (qpos[:, None] - kpos[None, :] < window)
+            ok = ok & (kpos[None, :] - qpos[:, None] < window)
+            s = torch.where(ok[None, None, None], s, neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v_i.dtype), v_i)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.to(q.dtype))                     # (B,KV,G,bq,hd)
+    o = torch.stack(outs, dim=1)                          # (B,nq,KV,G,bq,hd)
+    o = o.permute(0, 1, 4, 2, 3, 5)                       # (B,nq,bq,KV,G,hd)
+    return o.reshape(B, Sq, KV, G, hd)

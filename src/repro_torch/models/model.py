@@ -1,0 +1,96 @@
+"""Model assembly: init / forward for the dense family.
+
+The counterpart of `repro/models/model.py`.  Parameters keep the
+reference's stacked layout — `params["blocks"]["pos0"][...]` leaves of
+shape (num_layers, ...) — so the flat byte streams of the two packages
+line up leaf for leaf.  The layer loop unbinds the stacks once per
+forward; `cfg.remat` maps to `torch.utils.checkpoint` per layer.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.treebytes import leaf_arrays, tree_unflatten
+from repro_torch.models.attention import attention, init_attn
+from repro_torch.models.layers import (
+    FULL_WINDOW, chunked_cross_entropy, cross_entropy, dense_init, dtype_of,
+    init_mlp, init_rms, mlp, pdtype_of, rms_norm,
+)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Only the dense family with full attention is ported yet."""
+    dense = (cfg.family == "dense" and not cfg.num_experts
+             and cfg.sliding_window is None and cfg.embed_inputs
+             and not cfg.is_encoder and not cfg.num_patches)
+    if not dense:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense family with full attention is "
+            f"ported; MoE, SSM/hybrid, SWA, VLM and audio wait for "
+            f"ROADMAP 'The remaining model families'")
+
+
+def _stack(trees):
+    """Stack per-layer trees leaf-wise along a new axis 0."""
+    cols = zip(*(leaf_arrays(t) for t in trees))
+    return tree_unflatten(trees[0], [torch.stack(c) for c in cols])
+
+
+def _unstack(tree, n: int):
+    """The inverse of `_stack`: n per-layer trees (views, one unbind each)."""
+    cols = [leaf.unbind(0) for leaf in leaf_arrays(tree)]
+    return [tree_unflatten(tree, [c[i] for c in cols]) for i in range(n)]
+
+
+def _init_layer(cfg: ModelConfig, gen, device):
+    pd = pdtype_of(cfg)
+    D = cfg.d_model
+    p = {"ln1": init_rms(D, pd, device), "mix": init_attn(gen, cfg, device)}
+    if cfg.d_ff:
+        p["ln2"] = init_rms(D, pd, device)
+        p["ffn"] = init_mlp(gen, cfg, device)
+    return p
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, device):
+    check_supported(cfg)
+    pd = pdtype_of(cfg)
+    D, V = cfg.d_model, cfg.vocab_size
+    params = {"embed": dense_init(gen, (V, D), pd, device, scale=0.02)}
+    params["blocks"] = {"pos0": _stack([_init_layer(cfg, gen, device)
+                                        for _ in range(cfg.num_layers)])}
+    params["final_norm"] = init_rms(D, pd, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (D, V), pd, device)
+    return params
+
+
+def _layer(cfg, p, h, positions):
+    h = h + attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
+                      window=FULL_WINDOW, positions=positions)
+    if cfg.d_ff:
+        h = h + mlp(p["ffn"], rms_norm(h, p["ln2"]))
+    return h
+
+
+def forward(cfg: ModelConfig, params, batch, *, remat=None):
+    """Full-sequence forward. Returns (loss, aux_dict)."""
+    check_supported(cfg)
+    h = params["embed"][batch["tokens"].long()].to(dtype_of(cfg))
+    labels = batch["labels"]
+    positions = torch.arange(h.shape[1], device=h.device)
+    remat = cfg.remat if remat is None else remat
+    for p in _unstack(params["blocks"]["pos0"], cfg.num_layers):
+        if remat:
+            h = checkpoint(_layer, cfg, p, h, positions, use_reentrant=False)
+        else:
+            h = _layer(cfg, p, h, positions)
+    h = rms_norm(h, params["final_norm"])
+    w_out = params["lm_head"] if "lm_head" in params else params["embed"].T
+    if cfg.chunked_ce:
+        loss = chunked_cross_entropy(h, w_out, labels, cfg.chunked_ce)
+    else:
+        loss = cross_entropy(h @ w_out, labels)
+    return loss, {"loss": loss}

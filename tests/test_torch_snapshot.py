@@ -1,0 +1,189 @@
+"""The port's save and restore paths against the JAX package's, on the same
+state bytes:
+
+  * `ReftGroup(4)` in both packages publishes identical own and parity
+    regions and identical metadata (spec JSON, step, extra, `crc_*`
+    digests) for every member, with the device encode off and on (on the
+    CPU, "on" runs the kernel's plain version in the port and the
+    interpret-mode Pallas kernel in the reference).  The run id names the
+    shared-memory segments and is not part of the compared bytes; the
+    metadata holds no timestamps;
+  * the persisted `.reft` files are byte-identical, and each package
+    restores the other's — from disk and from shared memory, with one
+    member lost and RAIM5-decoded;
+  * a snapshot launched at step t and drained after more train steps
+    publishes step t's bytes (the port's train step is out of place).
+"""
+import os
+import pickle
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from repro.core.coordinator import ReftGroup as JaxGroup
+from repro.core.loader import LoadStats as JaxLoadStats
+from repro.core.recovery import restore_from_checkpoint as jax_restore_ckpt
+from repro.core.smp import ReadOnlyNode as JaxView
+from repro.core.snapshot import ReftConfig as JaxConfig
+from repro.core.treebytes import make_flat_spec as jax_spec
+from repro.core.treebytes import tree_to_buffer as jax_to_buffer
+from repro_torch import convert
+from repro_torch.configs import get_config
+from repro_torch.core.coordinator import ReftGroup
+from repro_torch.core.loader import LoadStats
+from repro_torch.core.recovery import restore_from_checkpoint, restore_state
+from repro_torch.core.smp import ReadOnlyNode
+from repro_torch.core.snapshot import ReftConfig, SnapshotEngine
+from repro_torch.core.treebytes import (host_bytes, leaf_arrays,
+                                        make_flat_spec, tree_to_buffer)
+from repro_torch.data.pipeline import SyntheticDataset
+from repro_torch.configs.base import InputShape
+from repro_torch.train.steps import init_train_state, make_train_step
+
+N = 4
+STEP = 2
+
+
+def _numpy_state(seed=0):
+    """Odd leaf sizes in every dtype a train state holds."""
+    rng = np.random.default_rng(seed)
+    import ml_dtypes
+    return {
+        "params": {"w": rng.standard_normal((37, 29)).astype(np.float32),
+                   "e": rng.standard_normal(1001).astype(ml_dtypes.bfloat16)},
+        "opt_state": {"mu": {"w": rng.standard_normal((37, 29))
+                             .astype(np.float32)},
+                      "step": np.asarray(3, np.int32)},
+        "rng": np.asarray([0, 12345], np.uint32),
+        "step": np.asarray(7, np.int32),
+    }
+
+
+def _flat(spec_fn, buf_fn, tree):
+    spec = spec_fn(tree)
+    buf = np.zeros(spec.total_bytes, np.uint8)
+    buf_fn(tree, spec, buf)
+    return buf
+
+
+def _probe(view_cls, run, total):
+    out = []
+    for node in range(N):
+        v = view_cls(run, node, N, total)
+        try:
+            out.append((v.read_own(STEP).tobytes(),
+                        v.read_parity(STEP).tobytes(),
+                        pickle.loads(v.meta(STEP))))
+        finally:
+            v.close()
+    return out
+
+
+@pytest.mark.parametrize("mode", ["off", "on"])
+def test_group_regions_meta_and_files_match_reference(mode, tmp_path):
+    np_state = _numpy_state()
+    jstate = jax.tree.map(jnp.asarray, np_state)
+    tstate = convert.state_from_numpy(np_state, device="cpu")
+    kw = dict(bucket_bytes=4096, stage_slots=4, device_encode=mode,
+              checkpoint_every_snapshots=10 ** 6)
+    jg = JaxGroup(N, jstate, JaxConfig(ckpt_dir=str(tmp_path / "jax"), **kw))
+    tg = ReftGroup(N, tstate, ReftConfig(ckpt_dir=str(tmp_path / "torch"),
+                                         **kw))
+    try:
+        assert tg.engines[0].stats["device_encode"] == (mode == "on")
+        assert jg.snapshot(jstate, STEP, extra_meta={"k": 1})
+        assert tg.snapshot(tstate, STEP, extra_meta={"k": 1})
+        assert tg.total_bytes == jg.total_bytes
+        want = _probe(JaxView, jg.run, jg.total_bytes)
+        got = _probe(ReadOnlyNode, tg.run, tg.total_bytes)
+        for node, (w, g) in enumerate(zip(want, got)):
+            assert g[0] == w[0], f"node {node}: own region differs"
+            assert g[1] == w[1], f"node {node}: parity region differs"
+            assert g[2] == w[2], f"node {node}: meta differs"
+        assert "crc_own" in got[0][2] and "crc_stripes" in got[0][2]
+
+        # in-memory, across packages: the port reads the reference's
+        # shared memory with member 1 lost (RAIM5 decode)
+        info = {}
+        tree, step, extra = restore_state(jg.run, N, jg.total_bytes, tstate,
+                                          [0, 2, 3], info=info)
+        assert (step, extra, info["missing"]) == (STEP, {"k": 1}, [1])
+        assert np.array_equal(_flat(make_flat_spec, tree_to_buffer, tree),
+                              _flat(jax_spec, jax_to_buffer, jstate))
+
+        # REFT-Ckpt files: byte-identical, and each package restores the
+        # other's family
+        assert jg.checkpoint() == STEP and tg.checkpoint() == STEP
+        names = sorted(os.listdir(tmp_path / "jax"))
+        assert names == sorted(os.listdir(tmp_path / "torch"))
+        for name in names:
+            assert (tmp_path / "jax" / name).read_bytes() == \
+                (tmp_path / "torch" / name).read_bytes(), name
+    finally:
+        jg.close()
+        tg.close()
+    want = _flat(jax_spec, jax_to_buffer, jstate)
+    tree, step, _ = restore_from_checkpoint(str(tmp_path / "jax"), N, tstate)
+    assert step == STEP
+    assert np.array_equal(_flat(make_flat_spec, tree_to_buffer, tree), want)
+    tree, step, _ = jax_restore_ckpt(str(tmp_path / "torch"), N, jstate)
+    assert np.array_equal(_flat(jax_spec, jax_to_buffer, tree), want)
+    # a member's shard corrupted on disk: CRC demotion, RAIM5 decode
+    lost = [n for n in names if "node-2" in n]
+    assert lost
+    for family in ("jax", "torch"):
+        _flip_own_bytes(tmp_path / family / lost[0])
+    st = LoadStats()
+    tree, step, _ = restore_from_checkpoint(str(tmp_path / "jax"), N, tstate,
+                                            stats=st)
+    assert st.decoded_bytes > 0
+    assert np.array_equal(_flat(make_flat_spec, tree_to_buffer, tree), want)
+    st = JaxLoadStats()
+    tree, step, _ = jax_restore_ckpt(str(tmp_path / "torch"), N, jstate,
+                                     stats=st)
+    assert st.decoded_bytes > 0
+    assert np.array_equal(_flat(jax_spec, jax_to_buffer, tree), want)
+
+
+def _flip_own_bytes(path, nbytes=16):
+    """Corrupt the start of a `.reft` shard's own region (just past the
+    pickled head), so its own-region digest fails."""
+    with open(path, "rb") as f:
+        pickle.load(f)
+        off = f.tell()
+    with open(path, "r+b") as f:
+        f.seek(off)
+        chunk = bytes(b ^ 0xFF for b in f.read(nbytes))
+        f.seek(off)
+        f.write(chunk)
+
+
+def test_snapshot_in_flight_keeps_step_t_while_training(tmp_path):
+    cfg = get_config("opt-125m").reduced()
+    state = init_train_state(cfg, 0, device="cpu")
+    step_fn = make_train_step(cfg)
+    ds = SyntheticDataset(cfg, InputShape("t", 32, 2, "train"), seed=0,
+                          device="cpu")
+    state, _ = step_fn(state, next(ds))
+    want = b"".join(host_bytes(x).tobytes() for x in leaf_arrays(state))
+    eng = SnapshotEngine(0, 1, state, ReftConfig(
+        bucket_bytes=1 << 16, ckpt_dir=str(tmp_path), scratch_buffers=1,
+        checkpoint_every_snapshots=10 ** 6))
+    try:
+        assert eng.snapshot_async(state, 1)
+        for _ in range(3):                     # training moves on meanwhile
+            state, _ = step_fn(state, next(ds))
+        assert eng.wait() == 1
+        view = ReadOnlyNode(eng.run, 0, 1, eng.spec.total_bytes)
+        try:
+            got = view.read_own(1).tobytes()
+        finally:
+            view.close()
+    finally:
+        eng.close()
+    assert got == want
+    newest = b"".join(host_bytes(x).tobytes() for x in leaf_arrays(state))
+    assert newest != want
