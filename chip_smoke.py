@@ -7,11 +7,16 @@ Phases, each printed as it ends; any failure exits non-zero:
      and room in /dev/shm for the snapshot managers' buffers;
   2. build every CUDA kernel from the sources (nvcc, sm_90a), timed;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, bit-exact, with CUDA-event times;
-  4. the main path at full width: `repro_torch.launch.train` on opt-125m
+     shapes the main paths give it, with CUDA-event times: encode_bucket
+     bit-exact; the SSD scan's forward and backward kernels against the
+     plain chunked scan and its autograd (fp32, TF32 off), once with a
+     zero and once with a random initial state;
+  4. the main paths at full width, each through `repro_torch.launch.train`
      with REFT, a software failure (recovered from memory) and a node
      failure (recovered by a RAIM5 decode), every restored state checked
-     byte for byte; the kernels' launch counts come from this run only;
+     byte for byte: opt-125m (seq 256), then mamba2-130m (seq 2048, the
+     SSD kernels in every layer); the launch counts are set to 0 just
+     before each run and read just after it;
   5. a `kernels` JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 
@@ -21,6 +26,7 @@ The module body stays import-light: the snapshot managers start with
 `spawn` and re-import this file.
 """
 import json
+import math
 import os
 import shutil
 import statistics
@@ -33,11 +39,16 @@ import zlib
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-ARGV = ["--arch", "opt-125m", "--backend", "reft", "--sg-size", "4",
-        "--steps", "12", "--batch", "2", "--seq", "256",
-        "--snapshot-every", "2", "--inject", "6:software",
-        "--inject", "10:node", "--device", "cuda", "--verify-restores"]
+BATCH = 2
+RUN_ARGS = ["--backend", "reft", "--sg-size", "4", "--steps", "12",
+            "--batch", str(BATCH), "--snapshot-every", "2",
+            "--inject", "6:software", "--inject", "10:node",
+            "--device", "cuda", "--verify-restores"]
+# (arch, seq, kernels that must launch on that path)
+PATHS = [("opt-125m", 256, ("encode_bucket",)),
+         ("mamba2-130m", 2048, ("encode_bucket", "ssd_scan", "ssd_scan_bwd"))]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 # GPU sleep (cycles, ~10 ms) that outlasts the host's enqueue of one timing
 # trial, so kernel times exclude the Python wrapper's per-call cost
 HOLD_CYCLES = 20_000_000
@@ -71,9 +82,16 @@ def device_facts(torch):
     print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    cfg = get_config("opt-125m")
-    # params in bf16 plus two fp32 moments; step, opt step, 2-word rng
-    state_bytes = cfg.param_count() * (2 + 4 + 4) + 4 + 4 + 8
+    # params in bf16 (Mamba2's A_log, dt_bias, D_skip in fp32) plus two
+    # fp32 moments; step, opt step, 2-word rng.  The larger state counts.
+    sizes = {}
+    for arch, _, _ in PATHS:
+        cfg = get_config(arch)
+        n_par = cfg.param_count()
+        f32 = 3 * cfg.ssm_heads * cfg.num_layers if cfg.family == "ssm" else 0
+        sizes[arch] = (n_par - f32) * 2 + f32 * 4 + n_par * 8 + 4 + 4 + 8
+    state_bytes = max(sizes.values())
+    print("state bytes: " + json.dumps(sizes))
     n = 4
     need = n * 3 * NodeLayout(n, state_bytes).buf_bytes + n * 8 * MIB4
     free = shutil.disk_usage("/dev/shm").free
@@ -184,32 +202,159 @@ def check_encode_bucket(torch):
     return rows, max_err
 
 
-def main_path(torch):
-    from repro_torch.kernels import stage
+def _ssd_shape():
+    """B, S, H, P, N, chunk of mamba2-130m's SSD core on its path."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-130m")
+    seq = {arch: s for arch, s, _ in PATHS}["mamba2-130m"]
+    return (BATCH, seq, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+            cfg.ssd_chunk)
+
+
+def _ssd_inputs(torch, gen, with_h0):
+    """SSD inputs as ssm_block makes them, with Mamba2's initial ranges
+    (A in [-16, -1], dt in [1e-3, 1e-1]; arXiv:2405.21060): a = dt A and
+    u = x dt, dt log-uniform per head times lognormal noise per step; x,
+    B, C, h0 and the cotangents standard normal."""
+    B, S, H, P, N, _ = _ssd_shape()
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
+    un = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(  # noqa: E731
+        *s, generator=gen, device="cuda")
+    A = -un(1.0, 16.0, H)
+    dt = torch.exp(un(math.log(1e-3), math.log(1e-1), H) + 0.5 * rn(B, S, H))
+    return {"u": (rn(B, S, H, P) * dt[..., None]).contiguous(),
+            "a": (dt * A).contiguous(), "Bm": rn(B, S, N), "Cm": rn(B, S, N),
+            "h0": rn(B, H, P, N) if with_h0 else None,
+            "dy": rn(B, S, H, P), "dhf": rn(B, H, P, N)}
+
+
+def check_ssd(torch):
+    """The SSD forward and backward kernels against the plain chunked scan
+    and its autograd, at mamba2-130m's shapes. Forward: atol 5e-4, rtol
+    1e-3 (tests/test_kernels.py's); backward: max |diff| <= 1e-3 max |ref|
+    for each gradient. The fp64 plain scan is printed beside them as the
+    yardstick of both fp32 versions."""
+    from repro_torch.kernels import ssd_scan as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    B, S, H, P, N, Q = _ssd_shape()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for case in ("h0 zero", "h0 random"):
+        x = _ssd_inputs(torch, gen, case == "h0 random")
+        names = ["u", "a", "Bm", "Cm"] + (["h0"] if x["h0"] is not None
+                                          else [])
+        y, hf, hs = K.ssd_scan_fwd(x["u"], x["a"], x["Bm"], x["Cm"],
+                                   x["h0"], chunk=Q)
+        grads = K.ssd_scan_bwd(x["dy"], x["dhf"], x["u"], x["a"], x["Bm"],
+                               x["Cm"], hs, chunk=Q)
+        torch.cuda.synchronize()
+        refs = {}
+        for dt in (torch.float32, torch.float64):
+            leaves = [x[k].to(dt).requires_grad_(True) for k in names]
+            h0 = leaves[4] if len(leaves) == 5 else None
+            yp, hfp = K.ssd_scan_plain(*leaves[:4], h0, chunk=Q)
+            gp = torch.autograd.grad((yp, hfp), leaves,
+                                     (x["dy"].to(dt), x["dhf"].to(dt)))
+            refs[dt] = (yp.detach(), hfp.detach(), gp)
+        yp, hfp, gp = refs[torch.float32]
+        y64, hf64, g64 = refs[torch.float64]
+        for got, want, w64, what in ((y, yp, y64, "y"),
+                                     (hf, hfp, hf64, "h_final")):
+            d = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, atol=5e-4, rtol=1e-3)
+            print(f"ssd_scan {case} {what}: max|diff| {d:.3e} "
+                  f"(max|ref| {want.abs().max().item():.3e}); vs fp64: "
+                  f"kernel {(got - w64).abs().max().item():.3e}, plain "
+                  f"{(want - w64).abs().max().item():.3e}; allclose "
+                  f"(atol 5e-4, rtol 1e-3) {ok}")
+            if not ok:
+                raise AssertionError(f"ssd_scan {case} {what} disagrees")
+            err["fwd"] = max(err["fwd"], d)
+        for name, got, want, w64 in zip(names, grads, gp, g64):
+            d = (got - want).abs().max().item()
+            top = want.abs().max().item()
+            print(f"ssd_scan_bwd {case} d{name}: max|diff| {d:.3e} "
+                  f"(max|ref| {top:.3e}, ratio {d / top:.2e}); vs fp64: "
+                  f"kernel {(got - w64).abs().max().item():.3e}, plain "
+                  f"{(want - w64).abs().max().item():.3e}")
+            if not (math.isfinite(d) and d <= 1e-3 * top):
+                raise AssertionError(f"ssd_scan_bwd {case} d{name} "
+                                     f"disagrees")
+            err["bwd"] = max(err["bwd"], d)
+        del refs, yp, hfp, gp, y64, hf64, g64
+
+    # timing at the main path's call: h0 None, h_final unused (dh_final
+    # None), states saved for the backward
+    x = _ssd_inputs(torch, gen, False)
+    u, a, Bm, Cm, dy = (x[k] for k in ("u", "a", "Bm", "Cm", "dy"))
+    _, _, hs = K.ssd_scan_fwd(u, a, Bm, Cm, chunk=Q)
+    fwd_ms = _cuda_ms(torch, lambda: K.ssd_scan_fwd(u, a, Bm, Cm, chunk=Q),
+                      hold_cycles=HOLD_CYCLES)
+    bwd_ms = _cuda_ms(torch, lambda: K.ssd_scan_bwd(dy, None, u, a, Bm, Cm,
+                                                    hs, chunk=Q),
+                      hold_cycles=HOLD_CYCLES)
+    leaves = [t.clone().requires_grad_(True) for t in (u, a, Bm, Cm)]
+    fwd_plain_ms = _host_ms(torch, lambda: K.ssd_scan_plain(
+        *(t.detach() for t in leaves), chunk=Q))
+    yp, _ = K.ssd_scan_plain(*leaves, chunk=Q)
+    bwd_plain_ms = _host_ms(torch, lambda: torch.autograd.grad(
+        yp, leaves, dy, retain_graph=True))
+    elems = B * S * H * P * N
+    io_fwd = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * N
+                  + B * H * P * N)                 # u, a, Bm, Cm -> y, h_f
+    io_bwd = 4 * (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * N)
+    rows = {}
+    for name, ms, plain_ms, flops, nbytes in (
+            ("ssd_scan", fwd_ms, fwd_plain_ms, 4 * elems, io_fwd),
+            ("ssd_scan_bwd", bwd_ms, bwd_plain_ms, 11 * elems, io_bwd)):
+        ops_ms = flops / FP32_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "operations" if ops_ms >= bytes_ms
+                      else "bytes",
+                      "max_abs_err": err["fwd" if name == "ssd_scan"
+                                         else "bwd"]}
+        print(f"{name}: ms={ms:.4f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={bound_ms:.5f} ({flops / 1e9:.2f} GFLOP -> "
+              f"{ops_ms:.5f} ms, {nbytes / 1e6:.1f} MB -> {bytes_ms:.5f} ms;"
+              f" {ms / bound_ms:.1f}x bound)")
+    return rows
+
+
+def main_path(torch, arch, seq, must_launch):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     ckpt = tempfile.mkdtemp(prefix="reft-chip-smoke-")
     try:
-        stage.encode_bucket.launches = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
-        rep = train.run(ARGV + ["--ckpt-dir", ckpt])
+        rep = train.run(["--arch", arch, "--seq", str(seq), *RUN_ARGS,
+                         "--ckpt-dir", ckpt])
         wall = time.perf_counter() - t0
-        launches = stage.encode_bucket.launches
+        launches = launch_counts()
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     tiers = [(r["tier"], r["bit_exact"]) for r in rep["recoveries"]]
     if tiers != [("in-memory", True), ("raim5", True)]:
-        raise AssertionError(f"recoveries {rep['recoveries']}: want "
+        raise AssertionError(f"{arch}: recoveries {rep['recoveries']}: want "
                              f"in-memory then raim5, both byte-exact")
     if not all(e.get("device_encode") for e in rep["engine_stats"]):
-        raise AssertionError("device encode was off on the main path")
-    if launches <= 0:
-        raise AssertionError("encode_bucket never launched on the main path")
+        raise AssertionError(f"{arch}: device encode was off on the path")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the {arch} path")
+    if not all(math.isfinite(x) for x in rep["losses"]):
+        raise AssertionError(f"{arch}: loss is not finite")
     st = rep["stats"]
     flights = st.get("engine_snapshots", 0)
     launched = len(rep["snapshot_crcs"])       # SG snapshots launched
     steps = rep["step_seconds"]
-    print(f"main path: wall {wall:.3f} s, {len(steps)} steps, "
-          f"median step {statistics.median(steps):.4f} s, step seconds "
+    print(f"{arch} path: wall {wall:.3f} s, {len(steps)} steps, "
+          f"median step {statistics.median(steps):.4f} s, losses "
+          f"{rep['losses'][0]:.4f} -> {rep['losses'][-1]:.4f}, step seconds "
           + json.dumps([round(x, 4) for x in steps]))
     print(f"snapshots: {launched} SG snapshots launched, {flights} member "
           f"flights completed, avg flight "
@@ -217,8 +362,9 @@ def main_path(torch):
           f"levels l1={st.get('engine_l1_seconds', 0.0):.3f} "
           f"l2={st.get('engine_l2_seconds', 0.0):.3f} "
           f"l3={st.get('engine_l3_seconds', 0.0):.3f} s")
-    print(f"encode_bucket launches on the main path: {launches} "
-          f"({launches / max(launched, 1):.1f} per SG snapshot)")
+    print(f"{arch} launches: {json.dumps(launches)} (encode_bucket "
+          f"{launches['encode_bucket'] / max(launched, 1):.1f} per SG "
+          f"snapshot)")
     print("snapshot CRCs: " + json.dumps(
         {str(k): f"{v:#010x}" for k, v in rep["snapshot_crcs"].items()}))
     print(f"recoveries: {json.dumps(rep['recoveries'])}")
@@ -237,17 +383,32 @@ def main() -> int:
     build_kernels()
     phase("3 kernels against their plain versions")
     rows, max_err = check_encode_bucket(torch)
-    phase("4 main path at full width")
-    launches = main_path(torch)
+    ssd = check_ssd(torch)
+    phase("4 main paths at full width")
+    by_path = {arch: main_path(torch, arch, seq, must)
+               for arch, seq, must in PATHS}
     phase("5 summary")
     own = rows[0]
+    ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     kernels = [{"name": "encode_bucket", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/encode_bucket.cu",
                 "replaces": "src/repro/kernels/stage.py:159",
-                "launches": launches, "max_abs_err": max_err,
-                "ms": own["ms"], "plain_ms": own["plain_ms"],
-                "bound_ms": own["bound_ms"], "bound_by": "bytes",
-                "library_ms": None, "ok": True}]
+                "max_abs_err": max_err, "ms": own["ms"],
+                "plain_ms": own["plain_ms"], "bound_ms": own["bound_ms"],
+                "bound_by": "bytes"},
+               {"name": "ssd_scan", "route": "cuda", "source": ssd_src,
+                "replaces": "src/repro/kernels/ssd_scan.py:60",
+                **ssd["ssd_scan"]},
+               {"name": "ssd_scan_bwd", "route": "cuda", "source": ssd_src,
+                "replaces": "src/repro/models/ssm.py:70 (the gradient XLA "
+                            "derives from ssd_chunked; no Pallas kernel)",
+                **ssd["ssd_scan_bwd"]}]
+    for k in kernels:
+        k["launches_by_path"] = {arch: n[k["name"]]
+                                 for arch, n in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        k["library_ms"] = None      # no single PyTorch call computes these
+        k["ok"] = True
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

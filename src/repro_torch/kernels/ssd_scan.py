@@ -1,0 +1,269 @@
+"""Mamba2 SSD scan: plain version, CUDA forward and backward kernels.
+
+Replaces the TPU kernel `repro/kernels/ssd_scan.py::ssd_scan` (Pallas
+`_ssd_kernel`) with a hand-written CUDA kernel for Hopper
+(`csrc/ssd_scan.cu`, built for sm_90a by `kernels.build`), and adds a
+second kernel for its gradient: the JAX package trains by letting XLA
+differentiate `models.ssm.ssd_chunked`, while here `SSDScan` (a
+`torch.autograd.Function`) pairs the two kernels.
+
+Contract (the reference's, `ssd_chunked`): u (B,S,H,P) fp32, a (B,S,H)
+fp32 log-decay <= 0, Bm/Cm (B,S,N) fp32, h0 (B,H,P,N) or None ->
+y (B,S,H,P), h_final (B,H,P,N), with the recurrence
+
+    h_t = e^{a_t} h_{t-1} + u_t (x) b_t,    y_t[p] = sum_n h_t[p, n] c_t[n].
+
+`ssd_scan` dispatches on the inputs' device: a CPU tensor runs
+`ssd_scan_plain` (gradients from torch autograd through it); a CUDA tensor
+launches the kernels or raises; any other device raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+DEFAULT_CHUNK = 256
+# Kernel geometry; each must equal the #define of the same name in
+# csrc/ssd_scan.cu.
+FWD_ROWS = 8       # state rows p per forward block (one warp each)
+FWD_T = 32         # steps of B, C, u, e^a staged in shared memory at once
+BWD_ROWS = 16      # state rows p per backward block (one warp each)
+BWD_SUB = 8        # steps the backward recomputes into registers at once
+BWD_RED = 4        # steps per cross-warp reduction of dB, dC, da
+MAX_N = 256        # state width: 8 columns per lane at most
+
+
+def chunk_len(S: int, chunk: int) -> int:
+    """Chunk length Q as the reference picks it: the largest divisor of S
+    not above `chunk`."""
+    Q = min(chunk, S)
+    while S % Q:
+        Q -= 1
+    return Q
+
+
+def ssd_scan_plain(u, a, Bm, Cm, h0=None, *, chunk: int = DEFAULT_CHUNK):
+    """The chunked SSD of `repro/models/ssm.py::ssd_chunked`, in torch.
+
+    One change from the reference: the intra-chunk decay masks the upper
+    triangle BEFORE the exponential (exp(-inf) = 0), where the reference
+    takes exp of every entry and masks after. The values are the same;
+    the reference's gradient is NaN once some exp overflows there
+    (cum[t] - cum[s] > 88 for s > t), since its where-backward multiplies
+    a zero cotangent by inf. Here it stays finite."""
+    B, S, H, P = u.shape
+    N = Bm.shape[-1]
+    Q = chunk_len(S, chunk)
+    nc = S // Q
+    uc = u.reshape(B, nc, Q, H, P)
+    ac = a.reshape(B, nc, Q, H)
+    Bc = Bm.reshape(B, nc, Q, N)
+    Cc = Cm.reshape(B, nc, Q, N)
+
+    cum = torch.cumsum(ac, dim=2)                          # (B,nc,Q,H)
+    # intra-chunk: L[t,s] = exp(cum[t]-cum[s]) for s<=t
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,nc,Q,Q,H)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
+    L = torch.exp(torch.where(tri[None, None, :, :, None], rel,
+                              torch.full_like(rel, float("-inf"))))
+    scores = torch.einsum("bntm,bnsm->bnts", Cc, Bc)
+    y_intra = torch.einsum("bntsh,bnshp->bnthp", scores[..., None] * L, uc)
+
+    # chunk states: S_n = sum_s exp(cum[-1]-cum[s]) B[s] (x) u[s]
+    dec = torch.exp(cum[:, :, -1:, :] - cum)               # (B,nc,Q,H)
+    states = torch.einsum("bnsm,bnshp->bnhpm", Bc, dec[..., None] * uc)
+
+    # inter-chunk recurrence over nc
+    h = torch.zeros((B, H, P, N), dtype=u.dtype, device=u.device) \
+        if h0 is None else h0
+    chunk_decay = torch.exp(cum[:, :, -1, :])              # (B,nc,H)
+    h_prevs = []
+    for n in range(nc):
+        h_prevs.append(h)                                  # state BEFORE chunk
+        h = h * chunk_decay[:, n, :, None, None] + states[:, n]
+    h_prevs = torch.stack(h_prevs, 1)                      # (B,nc,H,P,N)
+
+    y_inter = torch.einsum("bntm,bnhpm->bnthp", Cc, h_prevs) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(B, S, H, P)
+    return y, h
+
+
+# ------------------------------------------------------------------ checks
+def _check(u, a, Bm, Cm, h0=None) -> None:
+    """Types, ranks, shapes and layout the kernels take (the plain version
+    is held to the same contract)."""
+    named = [("u", u, 4), ("a", a, 3), ("Bm", Bm, 3), ("Cm", Cm, 3)]
+    if h0 is not None:
+        named.append(("h0", h0, 4))
+    for name, t, rank in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype} "
+                            f"(ssm_block casts before the call)")
+        if t.dim() != rank:
+            raise ValueError(f"{name} must have rank {rank}, got shape "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != u.device:
+            raise ValueError(f"{name} is on {t.device}, u on {u.device}")
+    B, S, H, P = u.shape
+    N = Bm.shape[-1]
+    want = {"a": (B, S, H), "Bm": (B, S, N), "Cm": (B, S, N),
+            "h0": (B, H, P, N)}
+    for name, t, _ in named[1:]:
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+                             f"{want[name]} for u {tuple(u.shape)}")
+    if min(B, S, H, P, N) < 1:
+        raise ValueError(f"empty SSD input: u {tuple(u.shape)}, N={N}")
+
+
+def _check_cuda(u) -> None:
+    if u.device.type != "cuda":
+        raise ValueError(f"the SSD kernels take CUDA tensors, got u on "
+                         f"{u.device}")
+
+
+# ------------------------------------------------------------------ kernels
+def _geometry(u, Bm, chunk: int):
+    B, S, H, P = u.shape
+    N = Bm.shape[-1]
+    if N > MAX_N:
+        raise ValueError(f"state width N={N} above the kernels' {MAX_N}")
+    Q = chunk_len(S, chunk)
+    return B, S, H, P, N, Q, S // Q
+
+
+def _lib():
+    from repro_torch.kernels.build import library
+    return library("ssd_scan", _SIGNATURES)
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{_lib().reft_ssd_error_string(rc).decode()}")
+
+
+def ssd_scan_fwd(u, a, Bm, Cm, h0=None, *, chunk: int):
+    """Forward kernel. -> (y, h_final, hs): hs (B,H,nc,P,N) holds the
+    state before each chunk of Q steps, what the backward starts from."""
+    _check(u, a, Bm, Cm, h0)
+    _check_cuda(u)
+    B, S, H, P, N, Q, nc = _geometry(u, Bm, chunk)
+    y = torch.empty_like(u)
+    h_final = torch.empty((B, H, P, N), dtype=u.dtype, device=u.device)
+    hs = torch.empty((B, H, nc, P, N), dtype=u.dtype, device=u.device)
+    rc = _lib().reft_ssd_fwd(
+        u.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        None if h0 is None else h0.data_ptr(), y.data_ptr(),
+        h_final.data_ptr(), hs.data_ptr(),
+        B, S, H, P, N, Q, u.device.index or 0,
+        torch.cuda.current_stream(u.device).cuda_stream)
+    _raise_on(rc, "ssd_scan_fwd")
+    ssd_scan_fwd.launches += 1
+    return y, h_final, hs
+
+
+ssd_scan_fwd.launches = 0      # kernel launches (not plain-version calls)
+
+
+def ssd_scan_bwd(dy, dh_final, u, a, Bm, Cm, hs, *, chunk: int):
+    """Backward kernel: the reverse recurrence from dh_final (None: zero)
+    over the states recomputed from `hs`. -> (du, da, dBm, dCm, dh0) in
+    the forward's layouts. dBm, dCm and da come from per-(b, h, p-tile)
+    partials summed here by one torch reduction each, in a fixed order."""
+    _check(u, a, Bm, Cm)
+    B, S, H, P, N, Q, nc = _geometry(u, Bm, chunk)
+    for name, t, shape in (("dy", dy, (B, S, H, P)),
+                           ("dh_final", dh_final, (B, H, P, N)),
+                           ("hs", hs, (B, H, nc, P, N))):
+        if t is None and name == "dh_final":
+            continue
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be a float32 torch.Tensor")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+                             f"{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != u.device:
+            raise ValueError(f"{name} is on {t.device}, u on {u.device}")
+    _check_cuda(u)
+    n_pt = -(-P // BWD_ROWS)
+    n_sub = -(-Q // BWD_SUB)
+    dev = u.device
+    du = torch.empty_like(u)
+    dh0 = torch.empty((B, H, P, N), dtype=u.dtype, device=dev)
+    da_part = torch.empty((B, n_pt, S, H), dtype=u.dtype, device=dev)
+    dB_part = torch.empty((B, H * n_pt, S, N), dtype=u.dtype, device=dev)
+    dC_part = torch.empty((B, H * n_pt, S, N), dtype=u.dtype, device=dev)
+    scratch = torch.empty((B * H * n_pt, n_sub, BWD_ROWS, N),
+                          dtype=u.dtype, device=dev)
+    rc = _lib().reft_ssd_bwd(
+        dy.data_ptr(), None if dh_final is None else dh_final.data_ptr(),
+        u.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        hs.data_ptr(), du.data_ptr(), da_part.data_ptr(),
+        dB_part.data_ptr(), dC_part.data_ptr(), dh0.data_ptr(),
+        scratch.data_ptr(), B, S, H, P, N, Q, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return (du, da_part.sum(1), dB_part.sum(1), dC_part.sum(1), dh0)
+
+
+ssd_scan_bwd.launches = 0      # kernel launches (not plain-version calls)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # u, a, Bm, Cm, h0, y, h_final, hs, B, S, H, P, N, Q, device, stream
+    "reft_ssd_fwd": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    # dy, dh_final, u, a, Bm, Cm, hs, du, da_part, dB_part, dC_part, dh0,
+    # scratch, B, S, H, P, N, Q, device, stream
+    "reft_ssd_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
+    "reft_ssd_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+class SSDScan(torch.autograd.Function):
+    """Forward kernel, backward kernel. Works under non-reentrant
+    `torch.utils.checkpoint`: the forward runs again during backward and
+    saves the same tensors."""
+
+    @staticmethod
+    def forward(ctx, u, a, Bm, Cm, h0, chunk):
+        y, h_final, hs = ssd_scan_fwd(u, a, Bm, Cm, h0, chunk=chunk)
+        ctx.save_for_backward(u, a, Bm, Cm, hs)
+        ctx.chunk = chunk
+        ctx.has_h0 = h0 is not None
+        ctx.set_materialize_grads(False)
+        return y, h_final
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        u, a, Bm, Cm, hs = ctx.saved_tensors
+        dy = torch.zeros_like(u) if dy is None else dy.contiguous()
+        if dh_final is not None:
+            dh_final = dh_final.contiguous()
+        du, da, dB, dC, dh0 = ssd_scan_bwd(dy, dh_final, u, a, Bm, Cm, hs,
+                                           chunk=ctx.chunk)
+        return du, da, dB, dC, (dh0 if ctx.has_h0 else None), None
+
+
+def ssd_scan(u, a, Bm, Cm, h0=None, *, chunk: int):
+    """The SSD core of a Mamba2 layer: (y, h_final). Differentiable on
+    both routes: CPU tensors run `ssd_scan_plain` under torch autograd,
+    CUDA tensors the kernels of `SSDScan`; there is no fallback from one
+    to the other."""
+    _check(u, a, Bm, Cm, h0)
+    if u.device.type == "cpu":
+        return ssd_scan_plain(u, a, Bm, Cm, h0, chunk=chunk)
+    if u.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
+                         f"{u.device}")
+    return SSDScan.apply(u, a, Bm, Cm, h0, chunk)

@@ -8,6 +8,9 @@ mid-run and resumes training from the recovered state.
   python -m repro_torch.launch.train --arch opt-125m --backend reft \\
       --steps 12 --batch 2 --seq 256 --snapshot-every 2 \\
       --inject 6:software --inject 10:node
+  python -m repro_torch.launch.train --arch mamba2-130m --backend reft \\
+      --steps 12 --batch 2 --seq 2048 --snapshot-every 2 \\
+      --inject 6:software --inject 10:node
 
 Runs on CUDA unless `--device cpu` asks for the CPU; with no CUDA device
 and no `--device cpu` it raises.  `--verify-restores` records the CRC32 of
@@ -84,7 +87,8 @@ def parse_args(argv=None):
 
 def run(argv=None) -> dict:
     """Train as the CLI does; returns a report: losses, per-step seconds,
-    recoveries [{tier, step, bit_exact}], snapshot CRCs, backend stats."""
+    recoveries [{tier, step, bit_exact}], snapshot CRCs, backend stats,
+    and the launches of each CUDA kernel during the run."""
     ap, args = parse_args(argv)
     device = resolve_device(args.device)
 
@@ -94,6 +98,7 @@ def run(argv=None) -> dict:
     from repro_torch.core.recovery import RecoveryError
     from repro_torch.core.treebytes import state_crc
     from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.kernels import launch_counts
     from repro_torch.supervise.inject import parse_scenario
     from repro_torch.train.steps import (init_train_state, make_train_step,
                                          state_to)
@@ -131,6 +136,7 @@ def run(argv=None) -> dict:
 
     report = {"losses": [], "step_seconds": [], "recoveries": [],
               "snapshot_crcs": {}, "stats": {}, "engine_stats": []}
+    launches0 = launch_counts()
     saved_crc = report["snapshot_crcs"]
     t0 = time.time()
     step = int(state["step"])
@@ -217,6 +223,10 @@ def run(argv=None) -> dict:
               f"device_encode="
               f"{any(e.get('device_encode') for e in report['engine_stats'])} "
               f"degraded={sess.degraded}")
+    report["kernel_launches"] = {k: v - launches0[k]
+                                 for k, v in launch_counts().items()}
+    print("[kernels] " + " ".join(f"{k}={v}" for k, v in
+                                  report["kernel_launches"].items()))
     losses = report["losses"]
     report["wall_seconds"] = time.time() - t0
     if not losses:

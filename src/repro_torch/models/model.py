@@ -1,4 +1,4 @@
-"""Model assembly: init / forward for the dense family.
+"""Model assembly: init / forward for the dense and SSM families.
 
 The counterpart of `repro/models/model.py`.  Parameters keep the
 reference's stacked layout — `params["blocks"]["pos0"][...]` leaves of
@@ -11,25 +11,39 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core.treebytes import leaf_arrays, tree_unflatten
 from repro_torch.models.attention import attention, init_attn
 from repro_torch.models.layers import (
     FULL_WINDOW, chunked_cross_entropy, cross_entropy, dense_init, dtype_of,
     init_mlp, init_rms, mlp, pdtype_of, rms_norm,
 )
+from repro_torch.models.ssm import init_ssm, ssm_block
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Only the dense family with full attention is ported yet."""
-    dense = (cfg.family == "dense" and not cfg.num_experts
-             and cfg.sliding_window is None and cfg.embed_inputs
-             and not cfg.is_encoder and not cfg.num_patches)
-    if not dense:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense family with full attention is "
-            f"ported; MoE, SSM/hybrid, SWA, VLM and audio wait for "
-            f"ROADMAP 'The remaining model families'")
+    """Ported: the dense family with full attention and the pure SSM
+    family (Mamba2). Any other family raises, naming the ROADMAP item it
+    waits for."""
+    if cfg.family == "hybrid":
+        why = ("the hybrid family (Jamba) waits for ROADMAP 'The remaining "
+               "model families', after MoE")
+    elif cfg.num_experts:
+        why = "MoE waits for ROADMAP 'The remaining model families'"
+    elif cfg.sliding_window is not None:
+        why = ("sliding-window attention waits for ROADMAP 'TPU kernels to "
+               "port' (swa_flash, with the SWA archs)")
+    elif cfg.family == "vlm" or cfg.num_patches:
+        why = "VLM inputs wait for ROADMAP 'The remaining model families'"
+    elif cfg.family == "audio" or cfg.is_encoder or not cfg.embed_inputs:
+        why = "audio inputs wait for ROADMAP 'The remaining model families'"
+    elif cfg.family in ("dense", "ssm"):
+        return
+    else:
+        why = f"family {cfg.family!r} is unknown"
+    raise NotImplementedError(
+        f"{cfg.name}: ported are the dense (full attention) and SSM "
+        f"(Mamba2) families; {why}")
 
 
 def _stack(trees):
@@ -45,9 +59,15 @@ def _unstack(tree, n: int):
 
 
 def _init_layer(cfg: ModelConfig, gen, device):
+    """One layer's params. Stacks have period 1 (no hybrid yet), so every
+    layer is of the kind at position 0."""
     pd = pdtype_of(cfg)
     D = cfg.d_model
-    p = {"ln1": init_rms(D, pd, device), "mix": init_attn(gen, cfg, device)}
+    p = {"ln1": init_rms(D, pd, device)}
+    if cfg.layer_kind(0) == ATTN:
+        p["mix"] = init_attn(gen, cfg, device)
+    else:
+        p["mix"] = init_ssm(gen, cfg, device)
     if cfg.d_ff:
         p["ln2"] = init_rms(D, pd, device)
         p["ffn"] = init_mlp(gen, cfg, device)
@@ -68,8 +88,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device):
 
 
 def _layer(cfg, p, h, positions):
-    h = h + attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
-                      window=FULL_WINDOW, positions=positions)
+    if cfg.layer_kind(0) == ATTN:
+        h = h + attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
+                          window=FULL_WINDOW, positions=positions)
+    else:
+        h = h + ssm_block(p["mix"], cfg, rms_norm(h, p["ln1"]),
+                          chunk=cfg.ssd_chunk)[0]
+    # d_ff == 0 (Mamba2): no FFN; the reference adds zeros
     if cfg.d_ff:
         h = h + mlp(p["ffn"], rms_norm(h, p["ln2"]))
     return h

@@ -1,0 +1,99 @@
+"""Mamba2 (SSD, state-space duality) block, training path.
+
+The counterpart of `repro/models/ssm.py`: the same parameters, casts and
+math. The SSD core is `kernels.ssd_scan.ssd_scan`, whose route the
+inputs' device decides (the plain chunked scan on the CPU, the CUDA
+kernels on the card). Decode (`ssm_decode`, `_conv_step`) belongs to
+serving and is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK, ssd_scan
+from repro_torch.models.layers import dense_init, init_rms, pdtype_of, rms_norm
+
+
+def init_ssm(gen, cfg, device):
+    D, di, N, H, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                      cfg.ssm_heads, cfg.ssm_conv_width)
+    pd = pdtype_of(cfg)
+    ch = di + 2 * N
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": dense_init(gen, (D, 2 * di + 2 * N + H), pd, device),
+        "conv_w": dense_init(gen, (W, ch), pd, device, scale=W ** -0.5),
+        "conv_b": torch.zeros((ch,), dtype=pd, device=device),
+        "A_log": torch.zeros((H,), **f32),                # A = -exp(A_log) = -1
+        "dt_bias": torch.full((H,), 0.5, **f32),
+        "D_skip": torch.ones((H,), **f32),
+        "gate_norm": init_rms(di, pd, device),
+        "out_proj": dense_init(gen, (di, D), pd, device),
+    }
+
+
+def _split_proj(p, cfg, x):
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    z, xbc, dt = torch.split(x @ p["in_proj"], [di, di + 2 * N, H], dim=-1)
+    return z, xbc, dt                                    # dt: (..., H)
+
+
+def _conv_full(p, xbc):
+    """Causal depthwise conv over the sequence. xbc: (B, S, ch)."""
+    W = p["conv_w"].shape[0]
+    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    out = sum(pad[:, i:i + xbc.shape[1], :] * p["conv_w"][i]
+              for i in range(W))
+    return F.silu(out + p["conv_b"])
+
+
+def _softplus(x):
+    return torch.logaddexp(x, torch.zeros_like(x))      # jax.nn.softplus
+
+
+def _gates(p, cfg, dt, xs):
+    """dt (B,S,H) raw -> (a, u): log-decay and scaled input."""
+    A = -torch.exp(p["A_log"])                           # (H,) negative
+    dtp = _softplus(dt.float() + p["dt_bias"])
+    a = dtp * A                                          # (B,S,H) <= 0
+    u = xs * dtp[..., None].to(xs.dtype)                 # (B,S,H,P)
+    return a, u
+
+
+def ssd_scan_ref(u, a, Bm, Cm, h0=None):
+    """Naive per-step recurrence (the reference's oracle; tests only)."""
+    B, S, H, P = u.shape
+    N = Bm.shape[-1]
+    h = torch.zeros((B, H, P, N), dtype=u.dtype, device=u.device) \
+        if h0 is None else h0
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(a[:, t])[:, :, None, None] \
+            + torch.einsum("bhp,bm->bhpm", u[:, t], Bm[:, t])
+        ys.append(torch.einsum("bhpm,bm->bhp", h, Cm[:, t]))
+    return torch.stack(ys, 1), h
+
+
+def ssm_block(p, cfg, x, h0=None, chunk=DEFAULT_CHUNK):
+    """Full-sequence mamba2 block. x: (B,S,D) -> (y, (conv_state, h_final)).
+
+    The reference's `use_kernel` flag is gone: `ssd_scan` launches the
+    CUDA kernels for tensors on the card and runs its plain version for
+    tensors on the CPU."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    B, S, D = x.shape
+    z, xbc, dt = _split_proj(p, cfg, x)
+    conv_state = xbc[:, -(cfg.ssm_conv_width - 1):, :]   # for decode handoff
+    xbc = _conv_full(p, xbc)
+    xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
+    xs = xs.reshape(B, S, H, P)
+    a, u = _gates(p, cfg, dt, xs)
+    f32 = lambda t: t.to(torch.float32).contiguous()     # noqa: E731
+    y, h_final = ssd_scan(f32(u), f32(a), f32(Bm), f32(Cm), h0=h0,
+                          chunk=chunk)
+    y = y + p["D_skip"][None, None, :, None] * xs.float()
+    y = y.reshape(B, S, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["gate_norm"])
+    out = y @ p["out_proj"]
+    return out, (conv_state.to(x.dtype), h_final)

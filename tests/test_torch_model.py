@@ -159,5 +159,12 @@ def test_flash_attention_matches_reference():
 
 def test_unported_families_say_where_they_wait():
     from repro_torch.configs import get_config as tget
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.check_supported(tget("mamba2-130m").reduced())
+    for name in ("opt-125m", "mamba2-130m"):       # dense and SSM: ported
+        TM.check_supported(tget(name).reduced())
+    for name, what in (("jamba-v0.1-52b", "hybrid"), ("dbrx-132b", "MoE"),
+                       ("gemma3-4b", "swa_flash"),
+                       ("phi-3-vision-4.2b", "VLM"),
+                       ("hubert-xlarge", "audio")):
+        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+            TM.check_supported(tget(name).reduced())
+        assert what in str(e.value), (name, str(e.value))

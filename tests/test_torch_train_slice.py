@@ -1,8 +1,9 @@
-"""The slice end to end on the CPU: `python -m repro_torch.launch.train`
+"""The slices end to end on the CPU: `python -m repro_torch.launch.train`
 recovers through the in-memory tier, then through a RAIM5 decode, with
-every restored state byte-exact, and finishes with a finite loss — once
-with the host encode path and once with the device encode path forced on
-(the kernel's plain version, since the state lives on the CPU)."""
+every restored state byte-exact, and finishes with a finite loss — for
+opt-125m once with the host encode path and once with the device encode
+path forced on (the kernel's plain version, since the state lives on the
+CPU), and for mamba2-130m over a sequence of two SSD chunks."""
 import math
 import os
 import re
@@ -15,11 +16,10 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("device_encode", ["auto", "on"])
-def test_train_recovers_through_both_tiers(device_encode, tmp_path):
+def _train(tmp_path, arch, seq, device_encode):
     cmd = [sys.executable, "-m", "repro_torch.launch.train",
-           "--device", "cpu", "--arch", "opt-125m", "--reduced",
-           "--steps", "12", "--batch", "2", "--seq", "64",
+           "--device", "cpu", "--arch", arch, "--reduced",
+           "--steps", "12", "--batch", "2", "--seq", str(seq),
            "--snapshot-every", "2", "--inject", "6:software",
            "--inject", "10:node", "--ckpt-dir", str(tmp_path),
            "--device-encode", device_encode, "--verify-restores"]
@@ -37,3 +37,17 @@ def test_train_recovers_through_both_tiers(device_encode, tmp_path):
     assert stats and stats.group(1) == str(device_encode == "on"), out
     done = re.search(r"\[done\] steps=12 final_loss=(\S+)", out)
     assert done and math.isfinite(float(done.group(1))), out
+    return out
+
+
+@pytest.mark.parametrize("device_encode", ["auto", "on"])
+def test_train_recovers_through_both_tiers(device_encode, tmp_path):
+    _train(tmp_path, "opt-125m", 64, device_encode)
+
+
+def test_mamba2_train_recovers_through_both_tiers(tmp_path):
+    """Reduced mamba2-130m keeps the SSD chunk of 256: 320 tokens make two
+    chunks of 160, so the state carried over a chunk boundary is trained
+    through, and its fp32 leaves ride in every snapshot and restore."""
+    out = _train(tmp_path, "mamba2-130m", 320, "on")
+    assert "arch=mamba2-130m-smoke" in out, out
