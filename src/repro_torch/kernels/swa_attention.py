@@ -1,0 +1,218 @@
+"""Sliding-window GQA flash attention: plain version, CUDA forward and
+backward kernels.
+
+Replaces the TPU kernel `repro/kernels/swa_attention.py::swa_flash`
+(Pallas `_flash_kernel`) with a hand-written CUDA kernel for Hopper
+(`csrc/swa_flash.cu`, built for sm_90a by `kernels.build`), and adds two
+kernels for its gradient: the JAX package trains by letting XLA
+differentiate `models.flash.flash_attention`, while here `SWAFlash` (a
+`torch.autograd.Function`) pairs the forward kernel with them.
+
+Contract (the reference's): q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), float32
+or bfloat16, all of one type; query head h = kv*G + g; the output is
+(B,Sq,KV,G,hd) in q's type. Query position i sees key position j when
+(not causal or j <= i) and |i - j| < window; `window=None` is full
+attention (`FULL_WINDOW`).
+
+`swa_flash` dispatches on the inputs' device: a CPU tensor runs
+`swa_flash_plain` (gradients from torch autograd through it); a CUDA
+tensor launches the kernels or raises; any other device raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.models.flash import flash_attention
+from repro_torch.models.layers import FULL_WINDOW
+
+# Kernel geometry; each must equal its counterpart in csrc/swa_flash.cu.
+COLS = 64                      # score-tile columns: KV (forward, dQ) or
+                               # query (dK/dV) positions per tile
+ROWS = 64                      # query rows per forward block (4 * FWD_TY)
+BWD_ROWS = {64: 64, 128: 64, 256: 32}   # rows per backward block, by hd
+HEAD_DIMS = tuple(BWD_ROWS)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _window(window) -> int:
+    w = FULL_WINDOW if window is None else int(window)
+    if w < 1:
+        raise ValueError(f"window must be >= 1 (or None), got {window}")
+    return w
+
+
+def swa_flash_plain(q, k, v, *, window, causal=True):
+    """`models.flash.flash_attention` with the model's tiling
+    (`models.attention`'s flash branch) and the static band: the port's
+    windows are python ints, so the KV blocks outside each query block's
+    band are always skipped (the values are those of the full sweep)."""
+    w = _window(window)
+    Sq, Sk = q.shape[1], k.shape[1]
+    return flash_attention(q, k, v, window=w, causal=causal,
+                           block_q=max(512, Sq // 16),
+                           block_k=max(1024, Sk // 16),
+                           band=w if w < FULL_WINDOW else None)
+
+
+# ------------------------------------------------------------------ checks
+def _check(q, k, v) -> None:
+    """Types, ranks and shapes (both routes)."""
+    for name, t, rank in (("q", q, 5), ("k", k, 4), ("v", v, 4)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.dim() != rank:
+            raise ValueError(f"{name} must have rank {rank}, got shape "
+                             f"{tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    B, Sq, KV, G, hd = q.shape
+    if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) \
+            != (B, KV, hd):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"be (B, Sk, KV, hd) for q {tuple(q.shape)}")
+    if min(B, Sq, KV, G, hd, k.shape[1]) < 1:
+        raise ValueError(f"empty attention input: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+
+
+def _check_cuda(*named) -> None:
+    """Head width, layout and device the kernels take; no silent copy."""
+    hd = named[0][1].shape[-1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not among the kernels' {HEAD_DIMS}")
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (the kernels take "
+                             f"row strides from the shapes)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"the swa_flash kernels take CUDA tensors, got "
+                             f"{name} on {t.device}")
+
+
+# ------------------------------------------------------------------ kernels
+def _lib():
+    from repro_torch.kernels.build import library
+    return library("swa_flash", _SIGNATURES)
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{_lib().reft_swa_error_string(rc).decode()}")
+
+
+def _dims(q, k, window, causal):
+    B, Sq, KV, G, hd = q.shape
+    return (B, Sq, k.shape[1], KV, G, hd, _window(window), int(bool(causal)),
+            ctypes.c_float(hd ** -0.5), _DTYPES[q.dtype],
+            q.device.index or 0, torch.cuda.current_stream(q.device)
+            .cuda_stream)
+
+
+def swa_flash_fwd(q, k, v, *, window, causal=True):
+    """Forward kernel. -> (o, lse): o (B,Sq,KV,G,hd) in q's type, lse
+    (B,KV,G,Sq) float32 = m + log l of each row's online softmax."""
+    _check(q, k, v)
+    _check_cuda(("q", q), ("k", k), ("v", v))
+    B, Sq, KV, G, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    rc = _lib().reft_swa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), lse.data_ptr(),
+                             *_dims(q, k, window, causal))
+    _raise_on(rc, "swa_flash_fwd")
+    swa_flash_fwd.launches += 1
+    return o, lse
+
+
+swa_flash_fwd.launches = 0     # kernel launches (not plain-version calls)
+
+
+def swa_flash_bwd(do, q, k, v, o, lse, *, window, causal=True):
+    """Backward kernels (dQ, then dK and dV; one launch count a call).
+    -> (dq, dk, dv) in the inputs' type and shapes."""
+    _check(q, k, v)
+    B, Sq, KV, G, hd = q.shape
+    for name, t, shape, dtype in (("do", do, q.shape, q.dtype),
+                                  ("o", o, q.shape, q.dtype),
+                                  ("lse", lse, (B, KV, G, Sq),
+                                   torch.float32)):
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+            raise TypeError(f"{name} must be a {dtype} torch.Tensor")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+                             f"{tuple(shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    _check_cuda(("q", q), ("k", k), ("v", v), ("do", do), ("o", o),
+                ("lse", lse))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = _lib().reft_swa_bwd(do.data_ptr(), q.data_ptr(), k.data_ptr(),
+                             v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             *_dims(q, k, window, causal))
+    _raise_on(rc, "swa_flash_bwd")
+    swa_flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+swa_flash_bwd.launches = 0     # kernel launches (not plain-version calls)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# ..., B, Sq, Sk, KV, G, hd, window, causal, scale, dtype, device, stream
+_DIMS = [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+_SIGNATURES = {
+    "reft_swa_fwd": ([_P] * 5 + _DIMS, _I),        # q, k, v, o, lse
+    # do, q, k, v, o, lse, dq, dk, dv
+    "reft_swa_bwd": ([_P] * 9 + _DIMS, _I),
+    "reft_swa_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+class SWAFlash(torch.autograd.Function):
+    """Forward kernel, backward kernels. Works under non-reentrant
+    `torch.utils.checkpoint`: the forward runs again during backward and
+    saves the same tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        o, lse = swa_flash_fwd(q, k, v, window=window, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.causal = window, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = swa_flash_bwd(do.contiguous(), q, k, v, o, lse,
+                                   window=ctx.window, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def swa_flash(q, k, v, *, window, causal=True):
+    """The attention core of a flash-path layer: (B,Sq,KV,G,hd) in q's
+    type. Differentiable on both routes: CPU tensors run `swa_flash_plain`
+    under torch autograd, CUDA tensors the kernels of `SWAFlash`; there is
+    no fallback from one to the other."""
+    _check(q, k, v)
+    w = _window(window)
+    if q.device.type == "cpu":
+        return swa_flash_plain(q, k, v, window=w, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"swa_flash runs on cuda or cpu tensors, not "
+                         f"{q.device}")
+    _check_cuda(("q", q), ("k", k), ("v", v))
+    return SWAFlash.apply(q, k, v, w, bool(causal))

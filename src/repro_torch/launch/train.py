@@ -11,15 +11,20 @@ mid-run and resumes training from the recovered state.
   python -m repro_torch.launch.train --arch mamba2-130m --backend reft \\
       --steps 12 --batch 2 --seq 2048 --snapshot-every 2 \\
       --inject 6:software --inject 10:node
+  python -m repro_torch.launch.train --arch starcoder2-3b --layers 4 \\
+      --backend reft --steps 12 --batch 1 --seq 16384 --snapshot-every 2 \\
+      --inject 6:software --inject 10:node
 
 Runs on CUDA unless `--device cpu` asks for the CPU; with no CUDA device
 and no `--device cpu` it raises.  `--verify-restores` records the CRC32 of
 the whole state at every snapshotted step and checks each restored state
-against it, byte for byte.
+against it, byte for byte.  `--layers N` cuts the depth to N layers and
+keeps every width.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -56,6 +61,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="opt-125m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--steps", type=int, default=50)
@@ -106,6 +113,10 @@ def run(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.num_layers:
+            ap.error(f"--layers must be in 1..{cfg.num_layers}")
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     shape = InputShape("cli", args.seq, args.batch, "train")
     injections = {}
     for item in args.inject:
@@ -117,7 +128,8 @@ def run(argv=None) -> dict:
     if injections and args.backend == "null":
         ap.error("--inject needs a backend that can restore (not null)")
 
-    print(f"[train] arch={cfg.name} params={cfg.param_count():,} "
+    print(f"[train] arch={cfg.name} layers={cfg.num_layers} "
+          f"params={cfg.param_count():,} "
           f"batch={args.batch}x{args.seq} backend={args.backend} "
           f"device={device}")
     state = init_train_state(cfg, 0, device=device)

@@ -1,14 +1,16 @@
 """GQA attention with RoPE, optional qk-norm and sliding windows.
 
 The counterpart of `repro/models/attention.py`'s training path: the
-masked softmax below `FLASH_THRESHOLD`, the online-softmax
-`flash_attention` at and above it.  Decode (serving) is not ported yet.
+masked softmax below `FLASH_THRESHOLD`, flash attention at and above it
+(or for any length when a static band is asked for), through
+`kernels.swa_attention.swa_flash`: the CUDA kernels on the card, their
+plain version on the CPU.  Decode (serving) is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.flash import flash_attention
+from repro_torch.kernels.swa_attention import swa_flash
 from repro_torch.models.layers import (
     apply_rope, dense_init, init_rms, pdtype_of, rms_norm, rope_angles,
 )
@@ -68,20 +70,21 @@ def _mix(scores, v, cfg):
     return o.reshape(B, Sq, cfg.num_heads * cfg.head_dim)
 
 
-def attention(p, cfg, x, *, window, positions):
+def attention(p, cfg, x, *, window, positions, band=None):
     """Full-sequence attention (training).
 
     window: int (FULL_WINDOW for global layers).
     positions: (S,) integer tensor (contiguous from 0 for the flash path).
+    band: the static window of `cfg.banded_attention`, as the reference
+    takes it: it sends any length down the flash path. There the window
+    is always static, so out-of-band KV tiles are skipped either way.
     """
     q, k, v = _project_qkv(p, cfg, x, positions)
     B, S = x.shape[0], x.shape[1]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if S >= FLASH_THRESHOLD:
+    if S >= FLASH_THRESHOLD or band is not None:
         qg = q.reshape(B, S, KV, H // KV, hd)
-        o = flash_attention(qg, k, v, window=window, causal=cfg.causal,
-                            block_q=max(512, S // 16),
-                            block_k=max(1024, S // 16))
+        o = swa_flash(qg, k, v, window=window, causal=cfg.causal)
         return o.reshape(B, S, H * hd) @ p["wo"]
     qpos = positions[:, None]
     kpos = positions[None, :]

@@ -2,9 +2,14 @@
 
 The counterpart of `repro/models/flash.py` (plain jnp there, not a Pallas
 kernel): long sequences never materialize the (Sq, Sk) score matrix — live
-memory per step is one (bq, bk) tile.  Supports causal masking, windows
-and GQA.  The reference's banded mode (skipping KV blocks outside a static
-sliding window) belongs to the SWA archs, which are not ported yet.
+memory per step is one (bq, bk) tile.  Supports causal masking, windows,
+GQA and the reference's banded mode: with a static `band`, the KV blocks
+wholly outside each query block's window are skipped, which turns O(S^2)
+work into O(S*W) and leaves the values as they are.
+
+This is the plain version of the `swa_flash` CUDA kernels
+(`kernels/swa_attention.py`), as the reference's is the semantics of its
+`swa_attention` Pallas kernel.
 """
 from __future__ import annotations
 
@@ -20,9 +25,23 @@ def _pick_block(n, target):
     return b
 
 
+def _band_blocks(iq, bq, bk, nk, band, causal):
+    """KV block indices of query block `iq` that meet the static band."""
+    if band is None:
+        return range(nk)
+    q_lo = iq * bq
+    q_hi = q_lo + bq - 1
+    lo = max(0, (q_lo - band + 1) // bk)
+    hi = min(nk - 1, q_hi // bk if causal else (q_hi + band - 1) // bk)
+    return range(lo, hi + 1)
+
+
 def flash_attention(q, k, v, *, window, causal=True, block_q=512,
-                    block_k=1024):
+                    block_k=1024, band=None):
     """q: (B,Sq,KV,G,hd), k/v: (B,Sk,KV,hd); window: int.
+
+    band: optional static int window; KV blocks wholly outside the band of
+    each query block are skipped (exact banded attention).
     Returns (B,Sq,KV,G,hd) in q.dtype.
     """
     B, Sq, KV, G, hd = q.shape
@@ -41,7 +60,7 @@ def flash_attention(q, k, v, *, window, causal=True, block_q=512,
         m = torch.full((B, KV, G, bq), NEG_INF, device=dev)
         l = torch.zeros((B, KV, G, bq), device=dev)
         acc = torch.zeros((B, KV, G, bq, hd), device=dev)
-        for ik in range(nk):
+        for ik in _band_blocks(iq, bq, bk, nk, band, causal):
             k_i = k[:, ik * bk:(ik + 1) * bk]
             v_i = v[:, ik * bk:(ik + 1) * bk]
             kpos = ik * bk + torch.arange(bk, device=dev)

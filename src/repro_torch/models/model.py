@@ -22,17 +22,15 @@ from repro_torch.models.ssm import init_ssm, ssm_block
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Ported: the dense family with full attention and the pure SSM
-    family (Mamba2). Any other family raises, naming the ROADMAP item it
-    waits for."""
+    """Ported: the dense family, with full or sliding-window attention
+    (homogeneous as starcoder2, or local and global layers interleaved as
+    gemma3), and the pure SSM family (Mamba2). Any other family raises,
+    naming the ROADMAP item it waits for."""
     if cfg.family == "hybrid":
         why = ("the hybrid family (Jamba) waits for ROADMAP 'The remaining "
                "model families', after MoE")
     elif cfg.num_experts:
         why = "MoE waits for ROADMAP 'The remaining model families'"
-    elif cfg.sliding_window is not None:
-        why = ("sliding-window attention waits for ROADMAP 'TPU kernels to "
-               "port' (swa_flash, with the SWA archs)")
     elif cfg.family == "vlm" or cfg.num_patches:
         why = "VLM inputs wait for ROADMAP 'The remaining model families'"
     elif cfg.family == "audio" or cfg.is_encoder or not cfg.embed_inputs:
@@ -42,8 +40,23 @@ def check_supported(cfg: ModelConfig) -> None:
     else:
         why = f"family {cfg.family!r} is unknown"
     raise NotImplementedError(
-        f"{cfg.name}: ported are the dense (full attention) and SSM "
-        f"(Mamba2) families; {why}")
+        f"{cfg.name}: ported are the dense (full or sliding-window "
+        f"attention) and SSM (Mamba2) families; {why}")
+
+
+def window_array(cfg: ModelConfig):
+    """Each layer's attention window as a python int (FULL_WINDOW for a
+    global layer): the reference's `window_array`, static here."""
+    return [cfg.layer_window(i) or FULL_WINDOW
+            for i in range(cfg.num_layers)]
+
+
+def _band(cfg: ModelConfig, idx: int):
+    """`cfg.banded_attention`'s static band for layer `idx`, as the
+    reference takes it when the layer index is static (None: no band)."""
+    if cfg.banded_attention and cfg.sliding_window is not None:
+        return cfg.layer_window(idx)
+    return None
 
 
 def _stack(trees):
@@ -87,10 +100,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device):
     return params
 
 
-def _layer(cfg, p, h, positions):
+def _layer(cfg, p, h, positions, window, band):
     if cfg.layer_kind(0) == ATTN:
         h = h + attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
-                          window=FULL_WINDOW, positions=positions)
+                          window=window, positions=positions, band=band)
     else:
         h = h + ssm_block(p["mix"], cfg, rms_norm(h, p["ln1"]),
                           chunk=cfg.ssd_chunk)[0]
@@ -107,11 +120,14 @@ def forward(cfg: ModelConfig, params, batch, *, remat=None):
     labels = batch["labels"]
     positions = torch.arange(h.shape[1], device=h.device)
     remat = cfg.remat if remat is None else remat
-    for p in _unstack(params["blocks"]["pos0"], cfg.num_layers):
+    windows = window_array(cfg)
+    for i, p in enumerate(_unstack(params["blocks"]["pos0"],
+                                   cfg.num_layers)):
+        args = (cfg, p, h, positions, windows[i], _band(cfg, i))
         if remat:
-            h = checkpoint(_layer, cfg, p, h, positions, use_reentrant=False)
+            h = checkpoint(_layer, *args, use_reentrant=False)
         else:
-            h = _layer(cfg, p, h, positions)
+            h = _layer(*args)
     h = rms_norm(h, params["final_norm"])
     w_out = params["lm_head"] if "lm_head" in params else params["embed"].T
     if cfg.chunked_ce:

@@ -159,10 +159,10 @@ def test_flash_attention_matches_reference():
 
 def test_unported_families_say_where_they_wait():
     from repro_torch.configs import get_config as tget
-    for name in ("opt-125m", "mamba2-130m"):       # dense and SSM: ported
+    # dense (full and sliding-window attention) and SSM: ported
+    for name in ("opt-125m", "mamba2-130m", "starcoder2-3b", "gemma3-4b"):
         TM.check_supported(tget(name).reduced())
     for name, what in (("jamba-v0.1-52b", "hybrid"), ("dbrx-132b", "MoE"),
-                       ("gemma3-4b", "swa_flash"),
                        ("phi-3-vision-4.2b", "VLM"),
                        ("hubert-xlarge", "audio")):
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:

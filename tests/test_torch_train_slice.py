@@ -16,10 +16,10 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _train(tmp_path, arch, seq, device_encode):
+def _train(tmp_path, arch, seq, device_encode, batch=2):
     cmd = [sys.executable, "-m", "repro_torch.launch.train",
            "--device", "cpu", "--arch", arch, "--reduced",
-           "--steps", "12", "--batch", "2", "--seq", str(seq),
+           "--steps", "12", "--batch", str(batch), "--seq", str(seq),
            "--snapshot-every", "2", "--inject", "6:software",
            "--inject", "10:node", "--ckpt-dir", str(tmp_path),
            "--device-encode", device_encode, "--verify-restores"]
@@ -51,3 +51,11 @@ def test_mamba2_train_recovers_through_both_tiers(tmp_path):
     through, and its fp32 leaves ride in every snapshot and restore."""
     out = _train(tmp_path, "mamba2-130m", 320, "on")
     assert "arch=mamba2-130m-smoke" in out, out
+
+
+def test_starcoder2_train_recovers_through_both_tiers(tmp_path):
+    """Reduced starcoder2-3b (window 64) at seq 2048, the flash threshold:
+    every layer's attention runs `swa_flash` (its plain version here)."""
+    out = _train(tmp_path, "starcoder2-3b", 2048, "on", batch=1)
+    assert "arch=starcoder2-3b-smoke layers=2" in out, out
+    assert "batch=1x2048" in out, out
