@@ -4,7 +4,8 @@
 
 Phases, each printed as it ends; any failure exits non-zero:
   1. device facts: nvidia-smi name and power limit, torch's device name,
-     and room in /dev/shm for the snapshot managers' buffers;
+     room in /dev/shm for the snapshot managers' buffers and room in the
+     temp directory for the durable runs of phase 5;
   2. build every CUDA kernel from the sources (nvcc, sm_90a), timed;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with CUDA-event times: encode_bucket
@@ -15,6 +16,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      attention and its autograd, in fp32 and in bf16, at starcoder2-3b's
      shape and at gemma3-4b's head shape (local and global window), with
      SDPA's memory-efficient attention timed beside them as a yardstick;
+     the RAIM5 XOR parity kernel (xor_reduce) bit-exact at the opt-125m
+     path's stripe, a 4 MiB bucket, an odd lane count (its 4-byte body),
+     one row and eight rows, and the public entry point
+     (xor_parity_encode / xor_parity_decode) byte for byte against the
+     host codec raim5.xor_blocks at that stripe;
   4. the main paths at full width, each through `repro_torch.launch.train`
      with REFT, a software failure (recovered from memory) and a node
      failure (recovered by a RAIM5 decode), every restored state checked
@@ -22,7 +28,28 @@ Phases, each printed as it ends; any failure exits non-zero:
      kernels in every layer), then starcoder2-3b (4 of its 30 layers, seq
      16384, batch 1, the swa_flash kernels in every layer); the launch
      counts are set to 0 just before each run and read just after it;
-  5. a `kernels` JSON line, the card's name and power limit, and as the
+  5. the durable tiers at full width, one path (counts set to 0 before
+     it, read after it), opt-125m (seq 256, an SG of 4, 12 steps, every
+     restore checked byte for byte):
+     - an objstore run, a persist every 4 steps: recovered from memory,
+       then by a RAIM5 decode; persisted families uploaded to the object
+       store with their manifests;
+     - below RAM: a fresh objstore checkpointer over that directory (its
+       managers hold nothing): restore from the .reft family (tier
+       checkpoint), with the CRC the run recorded for that step; 4 bytes
+       of a data block damaged in a .reft file and in a store object, one
+       scrub of both tiers finds and repairs them, the original bytes
+       back; every .reft deleted, restore from the store (tier objstore),
+       same CRC; each restored state moved to the card;
+     - the kernel entry point on that state and store: every stripe's
+       parity through xor_parity_encode on the card, byte for byte
+       against the parity blocks the managers persisted, and node 1's
+       data blocks back through xor_parity_decode;
+     - the disk baselines, `--backend sync_disk`, then `async_disk`, a
+       software failure at step 6 recovered from disk (tier disk), with
+       their median steps beside the REFT opt-125m path's of phase 4
+       and the last save's d2h / serialize / persist seconds;
+  6. a `kernels` JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -30,6 +57,7 @@ run outside a checkout of the repository (it needs `src/repro_torch`).
 The module body stays import-light: the snapshot managers start with
 `spawn` and re-import this file.
 """
+import importlib
 import json
 import math
 import os
@@ -58,6 +86,16 @@ PATHS = [("opt-125m", 256, 2, None, ("encode_bucket",)),
           ("encode_bucket", "ssd_scan", "ssd_scan_bwd")),
          ("starcoder2-3b", 16384, 1, 4,
           ("encode_bucket", "swa_flash", "swa_flash_bwd"))]
+SG = 4                             # SG members on every path
+# the durable tiers' path (phase 5): opt-125m at full width under the
+# objstore backend, then the paper's disk baselines
+DURABLE_ARCH, DURABLE_SEQ, DURABLE_BATCH = "opt-125m", 256, 2
+DURABLE_ARGS = ["--arch", DURABLE_ARCH, "--seq", str(DURABLE_SEQ), "--batch",
+                str(DURABLE_BATCH), "--sg-size", str(SG), "--steps", "12",
+                "--snapshot-every", "2", "--device", "cuda",
+                "--verify-restores"]
+KEEP = 3                           # CheckpointSpec.keep, the default
+DURABLE = "durable tiers"          # the path's name in launches_by_path
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense tensor cores
@@ -99,31 +137,50 @@ def _path_config(arch, layers):
                                                           num_layers=layers)
 
 
+def _state_bytes(arch, layers=None):
+    """Train-state bytes: params in bf16 (Mamba2's A_log, dt_bias, D_skip
+    in fp32) plus two fp32 moments; step, opt step, 2-word rng."""
+    cfg = _path_config(arch, layers)
+    n_par = cfg.param_count()
+    f32 = 3 * cfg.ssm_heads * cfg.num_layers if cfg.family == "ssm" else 0
+    return (n_par - f32) * 2 + f32 * 4 + n_par * 8 + 4 + 4 + 8
+
+
 def device_facts(torch):
+    from repro_torch.core import raim5
     from repro_torch.core.smp import NodeLayout
     smi = smi_line()
     print(f"nvidia-smi: {smi}")
     print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    # params in bf16 (Mamba2's A_log, dt_bias, D_skip in fp32) plus two
-    # fp32 moments; step, opt step, 2-word rng, at the depth each path
-    # runs.  The larger state counts.
-    sizes = {}
-    for arch, _, _, layers, _ in PATHS:
-        cfg = _path_config(arch, layers)
-        n_par = cfg.param_count()
-        f32 = 3 * cfg.ssm_heads * cfg.num_layers if cfg.family == "ssm" else 0
-        sizes[arch] = (n_par - f32) * 2 + f32 * 4 + n_par * 8 + 4 + 4 + 8
+    # at the depth each path runs; the larger state counts
+    sizes = {arch: _state_bytes(arch, layers)
+             for arch, _, _, layers, _ in PATHS}
     state_bytes = max(sizes.values())
     print("state bytes: " + json.dumps(sizes))
-    n = 4
+    n = SG
     need = n * 3 * NodeLayout(n, state_bytes).buf_bytes + n * 8 * MIB4
     free = shutil.disk_usage("/dev/shm").free
     print(f"/dev/shm: free {free} B, need {need} B "
           f"(state {state_bytes} B, {n} SMPs x 3 buffers + rings)")
     if free < need:
         raise SystemExit(f"/dev/shm too small: free {free} B < need {need} B")
+    # the durable runs (phase 5) write opt-125m's state to the temp dir:
+    # objstore keeps KEEP REFT families (each n x n blocks: own + parity)
+    # and writes one more, both as .reft files and as store objects; a
+    # disk run writes one whole-state file a snapshot (6 in 12 steps) and
+    # GCs only when the session closes, one more in flight
+    opt = _state_bytes(DURABLE_ARCH)
+    family = n * n * raim5.block_size(opt, n)
+    need_tmp = max((KEEP + 1) * 2 * family, 7 * opt)
+    tmp = tempfile.gettempdir()
+    free_tmp = shutil.disk_usage(tmp).free
+    print(f"{tmp}: free {free_tmp} B, need {need_tmp} B (REFT family "
+          f"{family} B x {KEEP + 1} x 2 tiers; disk checkpoint {opt} B x 7)")
+    if free_tmp < need_tmp:
+        raise SystemExit(f"{tmp} too small: free {free_tmp} B < need "
+                         f"{need_tmp} B")
     return smi, state_bytes
 
 
@@ -259,7 +316,7 @@ def check_ssd(torch):
     1e-3 (tests/test_kernels.py's); backward: max |diff| <= 1e-3 max |ref|
     for each gradient. The fp64 plain scan is printed beside them as the
     yardstick of both fp32 versions."""
-    from repro_torch.kernels import ssd_scan as K
+    K = importlib.import_module("repro_torch.kernels.ssd_scan")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch.backends.cuda.matmul.allow_tf32 = "
           f"{torch.backends.cuda.matmul.allow_tf32}")
@@ -447,7 +504,7 @@ def check_swa(torch):
     max |ref|. The masked softmax in fp64 (`_swa_fp64`) is printed as the
     yardstick of the fp32 ones. Times in bf16; the bound at the bf16 tensor-core peak or the
     HBM rate, whichever is larger."""
-    from repro_torch.kernels import swa_attention as K
+    K = importlib.import_module("repro_torch.kernels.swa_attention")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {"fwd": 0.0, "bwd": 0.0, "fwd_bf16": 0.0, "bwd_bf16": 0.0}
@@ -555,6 +612,74 @@ def check_swa(torch):
     return rows
 
 
+def _xor_cases():
+    """(label, k, n lanes, the bound stated for it): (a) the RAIM5 stripe
+    of the opt-125m path at an SG of 4 (k = n - 1 = 3 data blocks of
+    block_size(state, 4) bytes, padded to 512 as xor_parity_encode pads
+    them), (b) a 4 MiB bucket, (c) an odd lane count (the kernel's 4-byte
+    body), (d) one row, (e) eight rows."""
+    from repro_torch.core import raim5
+    bs = raim5.block_size(_state_bytes(DURABLE_ARCH), SG)
+    lanes = -(-bs // 512) * 128
+    return bs, [("(a) opt-125m RAIM5 stripe", SG - 1, lanes),
+                ("(b) 4 MiB bucket", 3, MIB4 // 4),
+                ("(c) odd n", 3, 1_000_003),
+                ("(d) k = 1", 1, MIB4 // 4),
+                ("(e) k = 8", 8, MIB4 // 4)]
+
+
+def check_xor(torch):
+    """xor_reduce against xor_reduce_plain on the card, bit-exact, at the
+    cases of `_xor_cases`; then the public entry point at case (a):
+    xor_parity_encode and xor_parity_decode byte for byte against the
+    host codec `core/raim5.py::xor_blocks`."""
+    import numpy as np
+
+    from repro_torch.core import raim5
+    from repro_torch.kernels import xor_parity as X
+    from repro_torch.kernels import xor_parity_decode, xor_parity_encode
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bs, cases = _xor_cases()
+    rows = []
+    for label, k, n in cases:
+        blocks = torch.randint(-2 ** 31, 2 ** 31, (k, n), generator=gen,
+                               dtype=torch.int32, device="cuda") \
+            .view(torch.uint32)
+        out = X.xor_reduce(blocks)
+        plain = X.xor_reduce_plain(blocks)
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int32), plain.view(torch.int32)):
+            raise AssertionError(f"xor_reduce {label} disagrees")
+        ms = _cuda_ms(torch, lambda: X.xor_reduce(blocks),
+                      hold_cycles=HOLD_CYCLES)
+        plain_ms = _host_ms(torch, lambda: X.xor_reduce_plain(blocks))
+        moved = (k + 1) * 4 * n
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        n_vec = X.vector_count(n, blocks.data_ptr())
+        rows.append({"case": label, "k": k, "n": n, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bytes": moved, "max_abs_err": 0})
+        print(f"xor_reduce {label}: k={k} n={n} "
+              f"{'vector' if n_vec else '4-byte'} body ms={ms:.5f} "
+              f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.5f} ({moved} B;"
+              f" {ms / bound_ms:.2f}x bound) bit-exact")
+        del blocks, out, plain
+    raw = torch.randint(0, 256, (SG - 1, bs), generator=gen,
+                        dtype=torch.uint8, device="cuda")
+    parity = xor_parity_encode(raw)
+    lost = xor_parity_decode(raw[[0, 2]], parity)
+    torch.cuda.synchronize()
+    host = [raw[i].cpu().numpy() for i in range(SG - 1)]
+    if not (np.array_equal(parity.cpu().numpy(), raim5.xor_blocks(host))
+            and torch.equal(lost, raw[1])):
+        raise AssertionError("xor_parity_encode/decode disagree with "
+                             "raim5.xor_blocks")
+    print(f"xor_parity_encode / xor_parity_decode, {SG - 1} x {bs} B: "
+          f"byte-identical to raim5.xor_blocks")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main_path(torch, arch, seq, batch, layers, must_launch):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
@@ -615,6 +740,272 @@ def main_path(torch, arch, seq, batch, layers, must_launch):
     print("snapshot CRCs: " + json.dumps(
         {str(k): f"{v:#010x}" for k, v in rep["snapshot_crcs"].items()}))
     print(f"recoveries: {json.dumps(rep['recoveries'])}")
+    return launches, statistics.median(steps)
+
+
+def _train(args):
+    from repro_torch.launch import train
+    rep = train.run(args)
+    if not all(math.isfinite(x) for x in rep["losses"]):
+        raise AssertionError(f"{args}: loss is not finite")
+    return rep
+
+
+def _tiers(rep):
+    return [(r["tier"], r["bit_exact"]) for r in rep["recoveries"]]
+
+
+def _objstore_run(ckpt):
+    """The objstore run: a persist every 4 steps, the two failures."""
+    from repro_torch.store import LocalObjectStore, object_families
+    rep = _train([*DURABLE_ARGS, "--backend", "objstore", "--ckpt-every", "4",
+                  "--inject", "6:software", "--inject", "10:node",
+                  "--ckpt-dir", ckpt])
+    if _tiers(rep) != [("in-memory", True), ("raim5", True)]:
+        raise AssertionError(f"objstore run: recoveries {rep['recoveries']}:"
+                             f" want in-memory then raim5, both byte-exact")
+    st = rep["stats"]
+    fams = object_families(LocalObjectStore(os.path.join(ckpt, "objstore")),
+                           "families")
+    if not st.get("persist") or not st.get("persist_upload_bytes") \
+            or not fams:
+        raise AssertionError(f"objstore run: persists {st.get('persist')}, "
+                             f"uploads {st.get('persist_upload_bytes')} B, "
+                             f"families with a manifest {sorted(fams)}")
+    steps = rep["step_seconds"]
+    print(f"objstore run: {len(steps)} steps, median step "
+          f"{statistics.median(steps):.4f} s, persists {st['persist']} "
+          f"(persist_s {st.get('persist_seconds', 0.0):.3f}), "
+          f"persist_overlap_s {st.get('persist_overlap_seconds', 0.0):.3f}, "
+          f"uploads {st['persist_upload_bytes'] / 1e6:.1f} MB in "
+          f"{st.get('persist_upload_seconds', 0.0):.3f} s (summed over "
+          f"members), retries {st.get('persist_upload_retries', 0)}; "
+          f"families in the store: {sorted(fams)}")
+    print(f"objstore run: recoveries {json.dumps(rep['recoveries'])}")
+    print("objstore run: step seconds "
+          + json.dumps([round(x, 4) for x in steps]))
+    return rep
+
+
+def _flip(read, write, off, what):
+    """Overwrite 4 bytes at `off` with their complement; -> the originals."""
+    orig = bytes(read(off, off + 4))
+    write(off, bytes(b ^ 0xFF for b in orig))
+    print(f"damaged 4 bytes of {what}")
+    return orig
+
+
+def _on_card(torch, state, what):
+    from repro_torch.core.treebytes import leaf_arrays
+    from repro_torch.train.steps import state_to
+    dev = state_to(state, "cuda")
+    if not all(t.is_cuda for t in leaf_arrays(dev)):
+        raise AssertionError(f"{what}: a restored leaf is not on the card")
+    return dev
+
+
+def _below_ram(torch, ckpt, crcs):
+    """Below RAM: a fresh objstore checkpointer over the objstore run's
+    directory (its
+    SMPs hold no snapshot, so RAM and RAIM5 cannot serve): restore from
+    the .reft family, damage a data block of a .reft file and of a store
+    object, scrub both tiers, then delete every .reft and restore from the
+    object store. -> (the state on the card, its step, the store)."""
+    import glob
+    import pickle
+
+    from repro_torch.api import CheckpointSpec, create_checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import raim5
+    from repro_torch.core.treebytes import state_crc
+    from repro_torch.store import load_manifest
+    from repro_torch.train.steps import init_train_state
+    template = init_train_state(get_config(DURABLE_ARCH), 0, device="cuda")
+    spec = CheckpointSpec(backend="objstore", ckpt_dir=ckpt, sg_size=SG,
+                          options={"scrub_every_s": 0.0})
+    ck = create_checkpointer(spec, template)
+    try:
+        t0 = time.perf_counter()
+        res = ck.restore()
+        restore_s = time.perf_counter() - t0
+        crc = state_crc(res.state)
+        if res.tier != "checkpoint" or crc != crcs.get(res.step):
+            raise AssertionError(f"restore below RAM: tier {res.tier} step "
+                                 f"{res.step} crc {crc:#010x}, want "
+                                 f"checkpoint and the objstore run's crc")
+        _on_card(torch, res.state, "checkpoint restore")
+        step = res.step
+        print(f"restore tier=checkpoint step={step} seconds={restore_s:.3f} "
+              f"read={res.load.bytes_read / 1e6:.1f}MB crc={crc:#010x} "
+              f"(the objstore run's)")
+
+        # damage: block 1 of node 1's .reft file, block 0 of node 2's object
+        bs = raim5.block_size(ck.group.total_bytes, SG)
+        path = os.path.join(ckpt, f"step-{step}-node-1.reft")
+        with open(path, "rb") as f:
+            pickle.load(f)
+            off = f.tell()
+
+        def fread(lo, hi):
+            with open(path, "rb") as f:
+                f.seek(lo)
+                return f.read(hi - lo)
+
+        def fwrite(lo, blob):
+            with open(path, "r+b") as f:
+                f.seek(lo)
+                f.write(blob)
+
+        file_off = off + bs + 12345
+        file_orig = _flip(fread, fwrite, file_off,
+                          f"{os.path.basename(path)} (data block 1)")
+        store = ck.store
+        ent = load_manifest(store, ck.store_prefix, step)["nodes"][2]
+        obj_off = int(ent["data_off"]) + 54321
+        obj_orig = _flip(lambda lo, hi: store.read_range(ent["key"], lo, hi),
+                         lambda lo, blob: store.write_range(ent["key"], lo,
+                                                            blob),
+                         obj_off, f"object {ent['key']} (data block 0)")
+        t0 = time.perf_counter()
+        reports = ck.scrub()
+        scrub_s = time.perf_counter() - t0
+        found = {}
+        for kind in ("file", "object"):
+            reps = [r for r in reports if r.kind == kind]
+            found[kind] = {"families": len(reps),
+                           "segments": sum(r.segments for r in reps),
+                           "bytes": sum(r.bytes_verified for r in reps),
+                           "corrupt": sum(len(r.corrupt) for r in reps),
+                           "repaired": sum(len(r.repaired) for r in reps),
+                           "unrepairable": sum(len(r.unrepairable)
+                                               for r in reps),
+                           "errors": sum(len(r.errors) for r in reps),
+                           "which": [(r.step, r.corrupt, r.repaired)
+                                     for r in reps if r.corrupt]}
+            if found[kind]["corrupt"] < 1 or found[kind]["repaired"] < 1:
+                raise AssertionError(f"scrub of the {kind} tier: "
+                                     f"{found[kind]}")
+        if fread(file_off, file_off + 4) != file_orig or bytes(
+                store.read_range(ent["key"], obj_off, obj_off + 4)) \
+                != obj_orig:
+            raise AssertionError("scrub: repaired bytes differ from the "
+                                 "originals")
+        print(f"scrub: {scrub_s:.3f} s, {json.dumps(found)}; repaired "
+              f"bytes equal the originals")
+
+        for p in glob.glob(os.path.join(ckpt, "*.reft")):
+            os.unlink(p)
+        t0 = time.perf_counter()
+        res = ck.restore()
+        restore2_s = time.perf_counter() - t0
+        crc = state_crc(res.state)
+        if res.tier != "objstore" or crc != crcs.get(res.step):
+            raise AssertionError(f"restore after deleting the .reft files: "
+                                 f"tier {res.tier} step {res.step} crc "
+                                 f"{crc:#010x}, want objstore and the run's")
+        dev = _on_card(torch, res.state, "objstore restore")
+        print(f"restore tier=objstore step={res.step} seconds="
+              f"{restore2_s:.3f} read={res.load.bytes_read / 1e6:.1f}MB "
+              f"crc={crc:#010x} (the objstore run's)")
+        return dev, res.step, store
+    finally:
+        ck.close()
+
+
+def _parity_on_card(torch, state, step, store):
+    """The public kernel entry point on the restored state: each
+    stripe's parity with xor_parity_encode, byte for byte against the
+    parity block the SMPs persisted (the objstore run's store objects),
+    then node 1's data blocks back from xor_parity_decode."""
+    from repro_torch.core import raim5
+    from repro_torch.core.treebytes import leaf_arrays, tensor_u8
+    from repro_torch.kernels import xor_parity_decode, xor_parity_encode
+    from repro_torch.store import load_manifest
+    flat = torch.cat([tensor_u8(t) for t in leaf_arrays(state)])
+    n, total = SG, flat.numel()
+    bs = raim5.block_size(total, n)
+    padded = torch.zeros(n * (n - 1) * bs, dtype=torch.uint8, device="cuda")
+    padded[:total] = flat
+    del flat
+    stripes = padded.view(n, n - 1, bs)
+    man = load_manifest(store, "families", step)
+    own = (n - 1) * bs
+    parity = {}
+    t0 = time.perf_counter()
+    for s in range(n):
+        got = xor_parity_encode(stripes[s])
+        ent = man["nodes"][s]
+        off = int(ent["data_off"]) + own
+        saved = torch.from_numpy(store.read_range(ent["key"], off, off + bs)
+                                 ).to("cuda")
+        if not torch.equal(got, saved):
+            raise AssertionError(f"stripe {s}: parity on the card differs "
+                                 f"from the persisted parity")
+        parity[s] = saved
+    lost = 1
+    for ref in raim5.data_blocks_of_node(lost, n):
+        s, j = ref.stripe, ref.index
+        surv = stripes[s, [i for i in range(n - 1) if i != j]]
+        if not torch.equal(xor_parity_decode(surv, parity[s]),
+                           stripes[s, j]):
+            raise AssertionError(f"decode of node {lost}'s block ({s}, {j}) "
+                                 f"differs")
+    torch.cuda.synchronize()
+    print(f"xor_parity_encode: {n} stripe parities of {bs} B on the card, "
+          f"byte-identical to the persisted ones; xor_parity_decode: node "
+          f"{lost}'s {n - 1} data blocks byte-identical "
+          f"({time.perf_counter() - t0:.3f} s with the store reads)")
+
+
+def _disk_run(backend, ckpt, reft_median):
+    """A disk baseline run, a software failure at step 6."""
+    rep = _train([*DURABLE_ARGS, "--backend", backend,
+                  "--inject", "6:software", "--ckpt-dir", ckpt])
+    if _tiers(rep) != [("disk", True)]:
+        raise AssertionError(f"{backend} run: recoveries "
+                             f"{rep['recoveries']}: want disk, byte-exact")
+    st, steps = rep["stats"], rep["step_seconds"]
+    snaps = st.get("snapshot", 0)
+    med = statistics.median(steps)
+    print(f"{backend} run: {len(steps)} steps, median step {med:.4f} s "
+          f"(REFT opt-125m in phase 4: {reft_median:.4f} s), snapshots "
+          f"{snaps}, snapshot_s {st.get('snapshot_seconds', 0.0):.3f} "
+          f"({st.get('snapshot_seconds', 0.0) / max(snaps, 1):.3f} a "
+          f"snapshot as the trainer saw it), last save "
+          + json.dumps({k: round(v, 4) for k, v in rep["disk_times"].items()}))
+    print(f"{backend} run: recoveries {json.dumps(rep['recoveries'])}")
+    print(f"{backend} run: step seconds "
+          + json.dumps([round(x, 4) for x in steps]))
+    return med
+
+
+def durable_path(torch, reft_median):
+    """Phase 5, one path: the objstore run, the restores below RAM and the
+    entry point in one directory, then the disk runs in fresh ones; the
+    launch counts are set to 0 just before it and read just after."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="reft-chip-objstore-")
+    try:
+        rep = _objstore_run(ckpt)
+        state, step, store = _below_ram(torch, ckpt, rep["snapshot_crcs"])
+        _parity_on_card(torch, state, step, store)
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for backend in ("sync_disk", "async_disk"):
+        ckpt = tempfile.mkdtemp(prefix=f"reft-chip-{backend}-")
+        try:
+            _disk_run(backend, ckpt, reft_median)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    launches = launch_counts()
+    print(f"{DURABLE} path: wall {time.perf_counter() - t0:.3f} s, launches "
+          f"{json.dumps(launches)}")
+    if launches["xor_reduce"] <= 0 or launches["encode_bucket"] <= 0:
+        raise AssertionError(f"{DURABLE} path: launches {launches}")
     return launches
 
 
@@ -632,10 +1023,15 @@ def main() -> int:
     rows, max_err = check_encode_bucket(torch)
     ssd = check_ssd(torch)
     swa = check_swa(torch)
+    xor = check_xor(torch)
     phase("4 main paths at full width")
-    by_path = {arch: main_path(torch, arch, seq, batch, layers, must)
-               for arch, seq, batch, layers, must in PATHS}
-    phase("5 summary")
+    by_path, medians = {}, {}
+    for arch, seq, batch, layers, must in PATHS:
+        by_path[arch], medians[arch] = main_path(torch, arch, seq, batch,
+                                                 layers, must)
+    phase("5 durable tiers at full width")
+    by_path[DURABLE] = durable_path(torch, medians[DURABLE_ARCH])
+    phase("6 summary")
     own = rows[0]
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     swa_src = "src/repro_torch/kernels/csrc/swa_flash.cu"
@@ -659,12 +1055,20 @@ def main() -> int:
                 "replaces": "src/repro/models/flash.py:28 (the gradient "
                             "XLA derives from flash_attention; no Pallas "
                             "kernel)",
-                **swa["swa_flash_bwd"]}]
+                **swa["swa_flash_bwd"]},
+               {"name": "xor_reduce", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/xor_parity.cu",
+                "replaces": "src/repro/kernels/xor_parity.py:36",
+                "max_abs_err": max(r["max_abs_err"] for r in xor),
+                "ms": xor[0]["ms"], "plain_ms": xor[0]["plain_ms"],
+                "bound_ms": xor[0]["bound_ms"], "bound_by": "bytes",
+                "cases": xor}]
     for k in kernels:
         k["launches_by_path"] = {arch: n[k["name"]]
                                  for arch, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-        # no single PyTorch call computes encode_bucket or the SSD scan
+        # no single PyTorch call computes encode_bucket, the SSD scan or
+        # an XOR reduction along an axis
         k.setdefault("library_ms", None)
         k["ok"] = True
     print(json.dumps({"kernels": kernels}))

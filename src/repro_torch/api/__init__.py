@@ -7,7 +7,7 @@
         ...
         sess.after_step(state, step, extra_meta=ds.state())
 
-Backends: reft | null (disk and objstore are not ported yet).
+Backends: reft | objstore | sync_disk | async_disk | null.
 """
 from repro_torch.api.registry import (
     available_backends, create_checkpointer, register_backend,

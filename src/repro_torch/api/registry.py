@@ -39,6 +39,7 @@ def create_checkpointer(spec: CheckpointSpec,
 
 
 def _load_builtin():
-    # import for registration side effects (idempotent); the disk and
-    # objstore backends of the reference are not ported yet
+    # import for registration side effects (idempotent)
     from repro_torch.api import backends as _b          # noqa: F401
+    from repro_torch.api import disk as _d              # noqa: F401
+    from repro_torch.api import objstore as _o          # noqa: F401

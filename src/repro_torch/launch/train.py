@@ -1,9 +1,11 @@
 """End-to-end training entry point with pluggable fault tolerance (PyTorch).
 
 The counterpart of `repro/launch/train.py`: trains a real model on the
-card under a registered `Checkpointer` backend (the paper's REFT stack, or
-`null`), with optional fault injection that exercises the recovery ladder
-mid-run and resumes training from the recovered state.
+card under a registered `Checkpointer` backend (the paper's REFT stack;
+`objstore`, REFT with tier-4 object-store durability; the paper's §6.1
+disk baselines `sync_disk` and `async_disk`; or `null`), with optional
+fault injection that exercises the recovery ladder mid-run and resumes
+training from the recovered state.
 
   python -m repro_torch.launch.train --arch opt-125m --backend reft \\
       --steps 12 --batch 2 --seq 256 --snapshot-every 2 \\
@@ -14,6 +16,11 @@ mid-run and resumes training from the recovered state.
   python -m repro_torch.launch.train --arch starcoder2-3b --layers 4 \\
       --backend reft --steps 12 --batch 1 --seq 16384 --snapshot-every 2 \\
       --inject 6:software --inject 10:node
+  python -m repro_torch.launch.train --arch opt-125m --backend objstore \\
+      --steps 12 --batch 2 --seq 256 --snapshot-every 2 --ckpt-every 4 \\
+      --inject 6:software --inject 10:node
+  python -m repro_torch.launch.train --arch opt-125m --backend sync_disk \\
+      --steps 12 --batch 2 --seq 256 --snapshot-every 2 --inject 6:software
 
 Runs on CUDA unless `--device cpu` asks for the CPU; with no CUDA device
 and no `--device cpu` it raises.  `--verify-restores` records the CRC32 of
@@ -68,13 +75,18 @@ def parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=256)
-    ap.add_argument("--backend", default="reft", choices=["reft", "null"])
+    ap.add_argument("--backend", default="reft",
+                    choices=["reft", "objstore", "sync_disk", "async_disk",
+                             "null"])
     ap.add_argument("--sg-size", type=int, default=4)
     ap.add_argument("--snapshot-every", type=int, default=2)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--ckpt-dir", default="/tmp/reft-train-ckpt")
     ap.add_argument("--resume", action="store_true",
                     help="restore-on-entry from ckpt-dir if possible")
+    ap.add_argument("--blocking-persist", action="store_true",
+                    help="run cadence persists inline (the pre-overlap "
+                         "behavior) instead of fire-and-poll")
     ap.add_argument("--device-encode", default="auto",
                     choices=["auto", "on", "off"],
                     help="bucket encode on the device (auto: when the "
@@ -94,8 +106,10 @@ def parse_args(argv=None):
 
 def run(argv=None) -> dict:
     """Train as the CLI does; returns a report: losses, per-step seconds,
-    recoveries [{tier, step, bit_exact}], snapshot CRCs, backend stats,
-    and the launches of each CUDA kernel during the run."""
+    recoveries [{tier, step, bit_exact, seconds}], snapshot CRCs, backend stats
+    (persists, overlap, uploads, scrub passes among them), the disk
+    backends' last save split into phases, and the launches of each CUDA
+    kernel during the run."""
     ap, args = parse_args(argv)
     device = resolve_device(args.device)
 
@@ -143,17 +157,20 @@ def run(argv=None) -> dict:
         snapshot_every_steps=args.snapshot_every,
         checkpoint_every_steps=args.ckpt_every,
         resume=args.resume,
-        options={"device_encode": args.device_encode},
+        options={"device_encode": args.device_encode,
+                 **({"persist_blocking": True} if args.blocking_persist
+                    else {})},
     )
 
     report = {"losses": [], "step_seconds": [], "recoveries": [],
-              "snapshot_crcs": {}, "stats": {}, "engine_stats": []}
+              "snapshot_crcs": {}, "stats": {}, "engine_stats": [],
+              "disk_times": None}
     launches0 = launch_counts()
     saved_crc = report["snapshot_crcs"]
     t0 = time.time()
     step = int(state["step"])
 
-    def restored(res, what):
+    def restored(res, what, seconds=None):
         bit_exact = None
         if args.verify_restores and what == "recover":
             bit_exact = state_crc(res.state) == saved_crc.get(res.step)
@@ -161,7 +178,8 @@ def run(argv=None) -> dict:
               + ("" if bit_exact is None else f" bit_exact={bit_exact}")
               + _load_stats_str(res.load))
         report["recoveries"].append({"tier": res.tier, "step": res.step,
-                                     "bit_exact": bit_exact, "kind": what})
+                                     "bit_exact": bit_exact, "kind": what,
+                                     "seconds": seconds})
         if bit_exact is False:
             raise RuntimeError(f"restored state at step {res.step} differs "
                                f"from the state saved at that step")
@@ -208,13 +226,15 @@ def run(argv=None) -> dict:
                         # harness (the sim has no event to wait on)
                         # analyze: ok ANZ007
                         time.sleep(0.05)
+                t_restore = time.perf_counter()
                 try:
                     res = sess.restore()
                 except RecoveryError as e:
                     ap.error(f"injected {kind} failure at step {step} is "
                              f"unrecoverable: {e} (no completed save yet — "
                              f"lower --snapshot-every or inject later)")
-                state, step = restored(res, "recover")
+                state, step = restored(res, "recover",
+                                       time.perf_counter() - t_restore)
 
             if step % 10 == 0 or step == args.steps:
                 print(f"  step {step:5d} loss {report['losses'][-1]:.4f} "
@@ -226,15 +246,35 @@ def run(argv=None) -> dict:
         if hasattr(sess.checkpointer, "group"):
             report["engine_stats"] = [dict(e.stats) for e in
                                       sess.checkpointer.group.engines]
+        if hasattr(sess.checkpointer, "writer"):
+            report["disk_times"] = dataclasses.asdict(
+                sess.checkpointer.writer.last_times)
+        # engine-side timing when the backend exposes it (async launches
+        # make the trainer-side snapshot_seconds near-zero by design)
         snaps = st.get("engine_snapshots") or st.get("snapshot", 0)
         secs = st.get("engine_seconds", st.get("snapshot_seconds", 0.0))
         print(f"[{args.backend}] snapshots={snaps} "
               f"persists={st.get('persist', 0)} "
+              f"persist_inflight={st.get('persist_inflight', 0)} "
+              f"persist_overlap_s="
+              f"{st.get('persist_overlap_seconds', 0.0):.3f} "
               f"restores={st.get('restore', 0)} "
               f"avg_snapshot_s={secs/max(snaps, 1):.3f} "
               f"device_encode="
               f"{any(e.get('device_encode') for e in report['engine_stats'])} "
               f"degraded={sess.degraded}")
+        if st.get("persist_upload_bytes"):
+            print(f"[{args.backend}] uploads="
+                  f"{st['persist_upload_bytes'] / 1e6:.1f}MB "
+                  f"upload_s={st.get('persist_upload_seconds', 0.0):.3f} "
+                  f"retries={st.get('persist_upload_retries', 0)} "
+                  f"throttle_s="
+                  f"{st.get('persist_throttle_seconds', 0.0):.3f}")
+        if st.get("scrub_passes"):
+            print(f"[{args.backend}] scrub_passes={st['scrub_passes']} "
+                  f"families={st.get('scrub_families', 0)} "
+                  f"corrupt={st.get('scrub_corrupt', 0)} "
+                  f"repaired={st.get('scrub_repaired', 0)}")
     report["kernel_launches"] = {k: v - launches0[k]
                                  for k, v in launch_counts().items()}
     print("[kernels] " + " ".join(f"{k}={v}" for k, v in

@@ -26,6 +26,8 @@ the terms summed into it, not its own size: near-zero outputs of O(100)
 terms miss a purely element-wise 1e-5. JAX's own `ssd_scan_ref` and
 `ssd_chunked` disagree by the same 2e-6 of max |y| at these shapes.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -35,8 +37,10 @@ import jax.numpy as jnp
 
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.models.ssm import ssd_chunked, ssd_scan_ref
-from repro_torch.kernels import ssd_scan as K
 from repro_torch.models.ssm import ssd_scan_ref as torch_ssd_scan_ref
+
+# the package names the public function `ssd_scan`, as the reference does
+K = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 SHAPES = [                      # tests/test_kernels.py's sweep
     (2, 64, 4, 8, 16, 16),

@@ -22,6 +22,7 @@ the CPU.
   that loss sums squares, so its gradients run large).
 * The wrappers' input checks, and `swa_flash` on CPU and meta tensors.
 """
+import importlib
 import math
 
 import numpy as np
@@ -34,9 +35,12 @@ import jax.numpy as jnp
 from repro.kernels.ref import swa_attention_ref
 from repro.kernels.swa_attention import swa_flash as jax_swa_flash
 from repro.models.flash import flash_attention as jax_flash
-from repro_torch.kernels import swa_attention as K
 from repro_torch.models.flash import NEG_INF, flash_attention
 from repro_torch.models.layers import FULL_WINDOW
+
+# the package names the public function `swa_attention`, as the reference
+# does
+K = importlib.import_module("repro_torch.kernels.swa_attention")
 
 SWEEP = [                            # tests/test_kernels.py's sweep
     (2, 128, 2, 3, 16, None, True),

@@ -10,6 +10,7 @@ the gradients rtol 1e-4 (atol 1e-6): the same float32 math, summed in
 another order. The bf16 train state's flat stream (spec JSON and bytes)
 is identical to the reference's."""
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -29,10 +30,13 @@ from repro_torch.configs.base import InputShape
 from repro_torch.core import treebytes as ttb
 from repro_torch.core.treebytes import leaf_arrays, tree_flatten_with_path
 from repro_torch.data.pipeline import make_batch
-from repro_torch.kernels import swa_attention as KS
 from repro_torch.models import model as TM
 from repro_torch.models.layers import FULL_WINDOW
 from repro_torch.train import steps as tsteps
+
+# the package names the public function `swa_attention`, as the reference
+# does
+KS = importlib.import_module("repro_torch.kernels.swa_attention")
 
 ARCHS = ["starcoder2-3b", "gemma3-4b"]
 SEQ = 2048
