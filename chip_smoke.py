@@ -6,23 +6,33 @@ Phases, each printed as it ends; any failure exits non-zero:
   1. device facts: nvidia-smi name and power limit, torch's device name,
      room in /dev/shm for the snapshot managers' buffers and room in the
      temp directory for the durable runs of phase 5;
-  2. build every CUDA kernel from the sources (nvcc, sm_90a), timed;
+  2. build every CUDA kernel from the sources (nvcc, sm_90a), timed, with
+     ptxas's registers and spills of swa_flash's bf16 kernels;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with CUDA-event times: encode_bucket
      bit-exact; the SSD scan's forward and backward kernels against the
      plain chunked scan and its autograd (fp32, TF32 off), once with a
      zero and once with a random initial state; the sliding-window flash
-     attention's forward and backward kernels against the plain flash
-     attention and its autograd, in fp32 and in bf16, at starcoder2-3b's
+     attention's forward and backward kernels (the fp32 route's CUDA-core
+     kernels, the bf16 route's tensor-core kernels, whose backward time
+     includes its D pre-pass) against the plain flash attention and its
+     autograd, in fp32 and in bf16, at starcoder2-3b's
      shape and at gemma3-4b's head shape (local and global window), with
-     SDPA's memory-efficient attention timed beside them as a yardstick;
+     SDPA's memory-efficient attention timed beside them as a yardstick,
+     every bf16 output also held row by row against the reference's own
+     scale, then at small shapes at the contract's edges (ragged S,
+     non-causal, window 1, B 2, hd 64 and 256), row by row in both types;
      the RAIM5 XOR parity kernel (xor_reduce) bit-exact at the opt-125m
      path's stripe, a 4 MiB bucket, an odd lane count (its 4-byte body),
      one row and eight rows, and the public entry point
      (xor_parity_encode / xor_parity_decode) byte for byte against the
      host codec raim5.xor_blocks at that stripe;
   4. the main paths at full width, each through `repro_torch.launch.train`
-     with REFT, a software failure (recovered from memory) and a node
+     with REFT, a software failure mid-flight (recovered from memory when
+     every member's SMP held the restored step when the restore read,
+     else by a RAIM5 decode, as when the failed member's flight was still
+     in the air: each restore records the members' clean steps and each
+     engine's own record of the flights that had landed) and a node
      failure (recovered by a RAIM5 decode), every restored state checked
      byte for byte: opt-125m (seq 256), mamba2-130m (seq 2048, the SSD
      kernels in every layer), then starcoder2-3b (4 of its 30 layers, seq
@@ -103,6 +113,21 @@ BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense tensor cores
 SWA_CASES = [("starcoder2-3b", 1, 16384, 2, 12, 128, 4096, True, True),
              ("gemma3-4b local", 1, 8192, 4, 2, 256, 1024, True, False),
              ("gemma3-4b global", 1, 8192, 4, 2, 256, None, True, False)]
+# small shapes at the edges of the wrappers' contract: (label, B, S, KV, G,
+# hd, window, causal)
+SWA_EDGE_CASES = [("ragged S, hd 64", 1, 200, 2, 3, 64, 70, True),
+                  ("non-causal, hd 64", 1, 150, 2, 2, 64, 50, False),
+                  ("window 1", 1, 128, 2, 1, 64, 1, True),
+                  ("B 2, full window", 2, 160, 1, 2, 128, None, True),
+                  ("window 65, ragged", 1, 100, 2, 2, 128, 65, True),
+                  ("hd 256, ragged", 1, 96, 1, 2, 256, 40, True),
+                  ("hd 256, non-causal full", 1, 300, 1, 2, 256, None, False),
+                  ("banded, 16 tiles", 1, 2048, 2, 3, 128, 512, True)]
+# the row check's (rel, row, floor) by type (`_rows_held`, against an fp64
+# yardstick): the floor is what the fp32 sums leave of a gradient that is
+# exactly zero (window 1: dS = P (dP - D) = 0), far below the rows of any
+# band; inputs are randn
+SWA_ROW_TOL = {"bfloat16": (1e-2, 3e-2, 1e-4), "float32": (1e-4, 1e-3, 2e-5)}
 # GPU sleep (cycles, ~10 ms) that outlasts the host's enqueue of one timing
 # trial, so kernel times exclude the Python wrapper's per-call cost
 HOLD_CYCLES = 20_000_000
@@ -192,6 +217,10 @@ def build_kernels():
     for name, path in libs.items():
         print(f"built {name}: {os.path.relpath(path, HERE)}")
     print(f"kernel build: {dt:.3f} s ({len(libs)} sources, parallel nvcc)")
+    # the tensor-core kernels of swa_flash's bf16 route: registers and
+    # spills of each, as ptxas reported them
+    for line in build.resource_report("swa_flash_bf16"):
+        print(f"swa_flash_bf16 ptxas: {line}")
 
 
 def _cuda_ms(torch, fn, reps=20, trials=7, hold_cycles=0):
@@ -422,7 +451,7 @@ def _swa_inputs(torch, gen, B, S, KV, G, hd):
 
 def _swa_plain(torch, K, x, dtype, window, causal):
     """The plain version and its autograd on x cast to dtype."""
-    leaves = [x[n].to(dtype).requires_grad_(True) for n in "qkv"]
+    leaves = [x[n].detach().to(dtype).requires_grad_(True) for n in "qkv"]
     o = K.swa_flash_plain(*leaves, window=window, causal=causal)
     return o.detach(), torch.autograd.grad(o, leaves, x["do"].to(dtype))
 
@@ -455,6 +484,43 @@ def _swa_fp64(torch, x, window, causal):
                 dk[b, :, h] += gk
                 dv[b, :, h] += gv
                 del s, oh
+    return o, (dq, dk, dv)
+
+
+def _swa_fp64_given_o(torch, x, o_out, window, causal):
+    """The yardstick of the bf16 rows: on x (the bf16 inputs' values), the
+    masked softmax in fp64, and its gradient in fp64 with D = rowsum(dO o
+    O) taken from `o_out`, the kernel's rounded output, as the bf16
+    route's pre-pass takes it. Where a row's softmax is peaked (the first
+    rows of a causal band), dP - D cancels, and D from a bf16 O moves dS
+    by up to tens of percent (flash attention's backward does the same);
+    with D from the same O, the yardstick leaves the kernel only its
+    roundings: P and dS to bf16, and the outputs. One (batch, query head)
+    at a time."""
+    B, S, KV, G, hd = x["q"].shape
+    pos = torch.arange(S, device="cuda")
+    d = pos[:, None] - pos[None, :]
+    ok = (d < (window or S)) & (-d < (window or S))
+    if causal:
+        ok &= d >= 0
+    o = torch.empty(x["q"].shape, dtype=torch.float64, device="cuda")
+    dq, dk, dv = (torch.zeros(x[n].shape, dtype=torch.float64,
+                              device="cuda") for n in "qkv")
+    scale = hd ** -0.5
+    for b in range(B):
+        for h in range(KV):
+            kh, vh = (x[n][b, :, h].double() for n in "kv")
+            for g in range(G):
+                qh, doh = (x[n][b, :, h, g].double() for n in ("q", "do"))
+                p = torch.softmax(((qh @ kh.T) * scale)
+                                  .masked_fill(~ok, -math.inf), -1)
+                o[b, :, h, g] = p @ vh
+                dd = (doh * o_out[b, :, h, g].double()).sum(-1)
+                ds = p * ((doh @ vh.T) - dd[:, None])
+                dq[b, :, h, g] = (ds @ kh) * scale
+                dk[b, :, h] += (ds.T @ qh) * scale
+                dv[b, :, h] += p.T @ doh
+                del p, ds
     return o, (dq, dk, dv)
 
 
@@ -492,18 +558,94 @@ def _sdpa_yardstick(torch, x, window, causal):
         return None, None, None, f"{type(e).__name__}: {e}"[:300]
 
 
+def _rows_held(torch, got, want, dtype):
+    """The row check of a swa_flash output against its fp64 yardstick, at
+    SWA_ROW_TOL[dtype] = (rel, row, floor): over the tensor ||diff|| <= rel
+    ||ref|| + floor sqrt(n); in each row (a query row of o and dq, a key
+    row of dk and dv, over hd) max |diff| <= row rms(ref row) + floor.
+    -> (tensor ratio, worst row ratio, that row's index): both <= 1 hold."""
+    rel, row, floor = SWA_ROW_TOL[str(dtype)[6:]]
+    w = want.reshape(-1, want.shape[-1]).double()
+    d = got.reshape(-1, got.shape[-1]).double() - w
+    tensor = d.norm().item() / (rel * w.norm().item()
+                                + floor * math.sqrt(w.numel()))
+    ratio = d.abs().amax(-1) / (row * w.pow(2).mean(-1).sqrt() + floor)
+    worst = int(ratio.argmax().item())
+    return tensor, ratio[worst].item(), worst
+
+
+def _swa_check(torch, K, label, x, window, causal, main_case, err):
+    """One shape, fp32 then bf16: the kernels on x cast to the type. At
+    SWA_CASES (`main_case`), against the plain version and its autograd on
+    the same inputs, at today's tolerances (fp32: forward allclose(atol
+    2e-5, rtol 1e-4), the sweep tolerance of tests/test_kernels.py,
+    backward max |diff| <= 1e-3 max |ref|; bf16: forward allclose(atol
+    3e-2, rtol 3e-2), its bf16 case, backward max |diff| <= 3e-2 max
+    |ref|). Then row by row (`_rows_held`) against an fp64 yardstick:
+    bf16, `_swa_fp64_given_o` on the bf16 values, everywhere; fp32,
+    `_swa_fp64`, held at SWA_EDGE_CASES, shown at SWA_CASES. Raises on a
+    disagreement; `err` keeps the largest |diff| from the plain version
+    at SWA_CASES."""
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        tol = 3e-2 if bf16 else None
+        xs = {n: t.detach().to(dtype) for n, t in x.items()}
+        o, lse = K.swa_flash_fwd(xs["q"], xs["k"], xs["v"], window=window,
+                                 causal=causal)
+        grads = K.swa_flash_bwd(xs["do"], xs["q"], xs["k"], xs["v"], o,
+                                lse, window=window, causal=causal)
+        torch.cuda.synchronize()
+        plain = ((None, (None,) * 3) if not main_case else
+                 _swa_plain(torch, K, x, dtype, window, causal))
+        o64, g64 = (_swa_fp64_given_o(torch, xs, o, window, causal) if bf16
+                    else _swa_fp64(torch, x, window, causal))
+        tag = f"swa_flash {label} {str(dtype)[6:]}"
+        enforce_rows = bf16 or not main_case
+        for name, got, want, w64 in (("o", o, plain[0], o64),
+                                     *zip(("dq", "dk", "dv"), grads,
+                                          plain[1], g64)):
+            line = f"{tag} {name}: "
+            if main_case:
+                d = (got.float() - want.float()).abs().max().item()
+                top = want.float().abs().max().item()
+                if name == "o":
+                    ok = torch.allclose(got.float(), want.float(),
+                                        atol=tol or 2e-5, rtol=tol or 1e-4)
+                    line += (f"max|diff| {d:.3e} (max|ref| {top:.3e}); "
+                             f"allclose (atol {tol or 2e-5}, rtol "
+                             f"{tol or 1e-4}) {ok}; ")
+                else:
+                    ok = math.isfinite(d) and d <= (tol or 1e-3) * top
+                    line += (f"max|diff| {d:.3e} (max|ref| {top:.3e}, "
+                             f"ratio {d / top:.2e}); ")
+                if not bf16:
+                    line += (f"vs fp64: kernel "
+                             f"{(got - w64).abs().max().item():.3e}, plain "
+                             f"{(want - w64).abs().max().item():.3e}; ")
+                if not ok:
+                    print(line, flush=True)
+                    raise AssertionError(f"{tag} {name} disagrees")
+                key = ("fwd" if name == "o" else "bwd") + \
+                    ("_bf16" if bf16 else "")
+                err[key] = max(err[key], d)
+            tensor, row, at = _rows_held(torch, got, w64, dtype)
+            print(line + f"rows vs fp64: tensor {tensor:.3f}, worst row "
+                  f"{row:.3f} (row {at}) of the bound"
+                  + ("" if enforce_rows else " (shown)"))
+            if enforce_rows and not (tensor <= 1 and row <= 1):
+                raise AssertionError(f"{tag} {name} disagrees row by row")
+        del o, lse, grads, plain, o64, g64, xs
+        torch.cuda.empty_cache()
+
+
 def check_swa(torch):
     """The swa_flash forward and backward kernels against the plain flash
-    attention and its autograd, at starcoder2-3b's path shape and at
-    gemma3-4b's head shape (window 1024, then the full window), TF32 off.
-    fp32 inputs: forward allclose(atol 2e-5, rtol 1e-4), the sweep
-    tolerance of tests/test_kernels.py; backward max |diff| <= 1e-3 max
-    |ref| per gradient. bf16 inputs, as on the path, against the plain
-    version on the same bf16 inputs: forward allclose(atol 3e-2, rtol
-    3e-2) (tests/test_kernels.py's bf16 case); backward max |diff| <= 3e-2
-    max |ref|. The masked softmax in fp64 (`_swa_fp64`) is printed as the
-    yardstick of the fp32 ones. Times in bf16; the bound at the bf16 tensor-core peak or the
-    HBM rate, whichever is larger."""
+    attention and its autograd (`_swa_check`, both types), at
+    starcoder2-3b's path shape and gemma3-4b's head shape (window 1024,
+    then the full window), then at SWA_EDGE_CASES, TF32 off. The plain
+    version computes in fp32 whatever its inputs' type. Times in bf16 at
+    SWA_CASES; the bound at the bf16 tensor-core peak or the HBM rate,
+    whichever is larger."""
     K = importlib.import_module("repro_torch.kernels.swa_attention")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -511,45 +653,7 @@ def check_swa(torch):
     rows = {}
     for label, B, S, KV, G, hd, window, causal, on_path in SWA_CASES:
         x = _swa_inputs(torch, gen, B, S, KV, G, hd)
-        for dtype, tol in ((torch.float32, None), (torch.bfloat16, 3e-2)):
-            xs = {n: t.to(dtype) for n, t in x.items()}
-            o, lse = K.swa_flash_fwd(xs["q"], xs["k"], xs["v"],
-                                     window=window, causal=causal)
-            grads = K.swa_flash_bwd(xs["do"], xs["q"], xs["k"], xs["v"], o,
-                                    lse, window=window, causal=causal)
-            torch.cuda.synchronize()
-            op, gp = _swa_plain(torch, K, x, dtype, window, causal)
-            o64, g64 = ((None, (None,) * 3) if tol else
-                        _swa_fp64(torch, x, window, causal))
-            tag = f"swa_flash {label} {str(dtype)[6:]}"
-            d = (o.float() - op.float()).abs().max().item()
-            ok = torch.allclose(o.float(), op.float(), atol=tol or 2e-5,
-                                rtol=tol or 1e-4)
-            yard = ("" if tol else
-                    f"; vs fp64: kernel {(o - o64).abs().max().item():.3e}"
-                    f", plain {(op - o64).abs().max().item():.3e}")
-            print(f"{tag} o: max|diff| {d:.3e} (max|ref| "
-                  f"{op.abs().max().item():.3e}){yard}; allclose (atol "
-                  f"{tol or 2e-5}, rtol {tol or 1e-4}) {ok}")
-            if not ok:
-                raise AssertionError(f"{tag} forward disagrees")
-            key = "fwd" if tol is None else "fwd_bf16"
-            err[key] = max(err[key], d)
-            for name, got, want, w64 in zip("qkv", grads, gp, g64):
-                d = (got.float() - want.float()).abs().max().item()
-                top = want.float().abs().max().item()
-                yard = ("" if tol else
-                        f"; vs fp64: kernel "
-                        f"{(got - w64).abs().max().item():.3e}, plain "
-                        f"{(want - w64).abs().max().item():.3e}")
-                print(f"{tag} d{name}: max|diff| {d:.3e} (max|ref| "
-                      f"{top:.3e}, ratio {d / top:.2e}){yard}")
-                if not (math.isfinite(d) and d <= (tol or 1e-3) * top):
-                    raise AssertionError(f"{tag} d{name} disagrees")
-                key = "bwd" if tol is None else "bwd_bf16"
-                err[key] = max(err[key], d)
-            del o, lse, grads, op, gp, o64, g64, xs
-            torch.cuda.empty_cache()
+        _swa_check(torch, K, label, x, window, causal, True, err)
 
         # times in bf16, the path's type
         xb = {n: t.bfloat16() for n, t in x.items()}
@@ -604,6 +708,11 @@ def check_swa(torch):
                                      f"({backend})" if backend else why)}
         del x, xb, q, k, v, do, o, lse
         torch.cuda.empty_cache()
+    edge = torch.Generator(device="cuda").manual_seed(1)
+    for label, B, S, KV, G, hd, window, causal in SWA_EDGE_CASES:
+        x = _swa_inputs(torch, edge, B, S, KV, G, hd)
+        _swa_check(torch, K, label, x, window, causal, False, err)
+        del x
     for name in rows:
         rows[name]["max_abs_err"] = err["fwd" if name == "swa_flash"
                                         else "bwd"]
@@ -695,10 +804,10 @@ def main_path(torch, arch, seq, batch, layers, must_launch):
         launches = launch_counts()
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    tiers = [(r["tier"], r["bit_exact"]) for r in rep["recoveries"]]
-    if tiers != [("in-memory", True), ("raim5", True)]:
+    want = _want_tiers(rep, arch)
+    if _tiers(rep) != want:
         raise AssertionError(f"{arch}: recoveries {rep['recoveries']}: want "
-                             f"in-memory then raim5, both byte-exact")
+                             f"{want}, all byte-exact")
     if not all(e.get("device_encode") for e in rep["engine_stats"]):
         raise AssertionError(f"{arch}: device encode was off on the path")
     for name in must_launch:
@@ -720,7 +829,9 @@ def main_path(torch, arch, seq, batch, layers, must_launch):
         raise AssertionError(f"{arch}: loss is not finite")
     st = rep["stats"]
     flights = st.get("engine_snapshots", 0)
-    launched = len(rep["snapshot_crcs"])       # SG snapshots launched
+    # steps some member snapshot (whole rounds, or partial ones that
+    # members with a busy flight slot skipped)
+    launched = len(rep["snapshot_crcs"])
     print(f"{arch} path ({batch}x{seq}, "
           f"{'full depth' if layers is None else f'{layers} layers'}): "
           f"peak device memory {peak:.3f} GB")
@@ -728,15 +839,15 @@ def main_path(torch, arch, seq, batch, layers, must_launch):
           f"median step {statistics.median(steps):.4f} s, losses "
           f"{rep['losses'][0]:.4f} -> {rep['losses'][-1]:.4f}, step seconds "
           + json.dumps([round(x, 4) for x in steps]))
-    print(f"snapshots: {launched} SG snapshots launched, {flights} member "
-          f"flights completed, avg flight "
+    print(f"snapshots: {launched} snapshot steps launched, {flights} "
+          f"member flights completed, avg flight "
           f"{st.get('engine_seconds', 0.0) / max(flights, 1):.4f} s, "
           f"levels l1={st.get('engine_l1_seconds', 0.0):.3f} "
           f"l2={st.get('engine_l2_seconds', 0.0):.3f} "
           f"l3={st.get('engine_l3_seconds', 0.0):.3f} s")
     print(f"{arch} launches: {json.dumps(launches)} (encode_bucket "
-          f"{launches['encode_bucket'] / max(launched, 1):.1f} per SG "
-          f"snapshot)")
+          f"{launches['encode_bucket'] / max(launched, 1):.1f} per snapshot "
+          f"step)")
     print("snapshot CRCs: " + json.dumps(
         {str(k): f"{v:#010x}" for k, v in rep["snapshot_crcs"].items()}))
     print(f"recoveries: {json.dumps(rep['recoveries'])}")
@@ -755,15 +866,82 @@ def _tiers(rep):
     return [(r["tier"], r["bit_exact"]) for r in rep["recoveries"]]
 
 
+def _restore_tier(r, what):
+    """The tier a REFT restore must take, from its record: each member's
+    clean steps as the ladder read them from its SMP (`clean`), and each
+    live member's flights as its own engine saw them when that read began
+    (`flights`, in launch order). The engines' record is held against the
+    SMPs' read:
+      - each member's flight that its engine saw land last is among that
+        member's clean steps (no snapshot an SMP acknowledged is lost);
+      - the restored step is the newest that SG - 1 members held (with
+        the rule above, no rollback past a step that landed on them);
+      - from memory when all SG members held it; by a RAIM5 decode
+        otherwise, and then only when every live member without it had
+        not seen its flight of that step land (in the air, failed, or
+        never launched: a member whose flight slot was busy).
+    A restore without the record fails."""
+    clean, flights = r.get("clean"), r.get("flights")
+    if not clean or not flights:
+        raise AssertionError(f"{what}: no record of the SMPs' read and the "
+                             f"engines' flights in {r}")
+    held = {}
+    for m, steps in clean.items():
+        for s in steps:
+            held.setdefault(s, set()).add(m)
+    for m, f in flights.items():
+        if f["landed"] and f["landed"][-1] not in clean.get(m, ()):
+            raise AssertionError(f"{what}: member {m}'s engine saw step "
+                                 f"{f['landed'][-1]} land, its SMP holds "
+                                 f"{clean.get(m)}: {r}")
+    ok = [s for s, ms in held.items() if len(ms) >= SG - 1]
+    if not ok:
+        raise AssertionError(f"{what}: no step held by {SG - 1} of {SG} "
+                             f"members: {r}")
+    step = max(ok)
+    if r["step"] != step:
+        raise AssertionError(f"{what}: restored step {r['step']}, not "
+                             f"{step}, the newest that {SG - 1} members "
+                             f"held: {r}")
+    if len(held[step]) == SG:
+        return "in-memory"
+    seen = [m for m, f in flights.items()
+            if m not in held[step] and step in f["landed"]]
+    if seen:
+        raise AssertionError(f"{what}: members {seen} saw step {step} land "
+                             f"but their SMPs lack it: {r}")
+    return "raim5"
+
+
+def _want_tiers(rep, what):
+    """The tiers RUN_ARGS' two failures must recover through, both
+    byte-exact: the software failure of node 0 as its restore's record
+    says (`_restore_tier`: in-memory, or raim5 while node 0's flight of
+    the newest step was in the air); the failure of node 1, whose SMP
+    goes with it, raim5."""
+    recs = rep["recoveries"]
+    if len(recs) != 2:
+        raise AssertionError(f"{what}: recoveries {recs}, want two")
+    first = _restore_tier(recs[0], f"{what}, first recovery")
+    second = _restore_tier(recs[1], f"{what}, second recovery")
+    in_air = {m: f["in_air"] for m, f in recs[0]["flights"].items()
+              if f["in_air"]}
+    print(f"{what}: first restore, step {recs[0]['step']}, must be {first} "
+          f"(flights in the air when it read: {in_air or 'none'}); second "
+          f"must be raim5 (record: {second})")
+    return [(first, True), ("raim5", True)]
+
+
 def _objstore_run(ckpt):
     """The objstore run: a persist every 4 steps, the two failures."""
     from repro_torch.store import LocalObjectStore, object_families
     rep = _train([*DURABLE_ARGS, "--backend", "objstore", "--ckpt-every", "4",
                   "--inject", "6:software", "--inject", "10:node",
                   "--ckpt-dir", ckpt])
-    if _tiers(rep) != [("in-memory", True), ("raim5", True)]:
+    want = _want_tiers(rep, "objstore run")
+    if _tiers(rep) != want:
         raise AssertionError(f"objstore run: recoveries {rep['recoveries']}:"
-                             f" want in-memory then raim5, both byte-exact")
+                             f" want {want}, all byte-exact")
     st = rep["stats"]
     fams = object_families(LocalObjectStore(os.path.join(ckpt, "objstore")),
                            "families")
@@ -1034,7 +1212,9 @@ def main() -> int:
     phase("6 summary")
     own = rows[0]
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
-    swa_src = "src/repro_torch/kernels/csrc/swa_flash.cu"
+    # bf16 (the path's type): tensor-core kernels; fp32: CUDA-core ones
+    swa_src = "src/repro_torch/kernels/csrc/swa_flash_bf16.cu"
+    swa_fp32 = "src/repro_torch/kernels/csrc/swa_flash.cu"
     kernels = [{"name": "encode_bucket", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/encode_bucket.cu",
                 "replaces": "src/repro/kernels/stage.py:159",
@@ -1049,9 +1229,11 @@ def main() -> int:
                             "derives from ssd_chunked; no Pallas kernel)",
                 **ssd["ssd_scan_bwd"]},
                {"name": "swa_flash", "route": "cuda", "source": swa_src,
+                "fp32_source": swa_fp32,
                 "replaces": "src/repro/kernels/swa_attention.py:81",
                 **swa["swa_flash"]},
                {"name": "swa_flash_bwd", "route": "cuda", "source": swa_src,
+                "fp32_source": swa_fp32,
                 "replaces": "src/repro/models/flash.py:28 (the gradient "
                             "XLA derives from flash_attention; no Pallas "
                             "kernel)",

@@ -11,6 +11,7 @@ through it.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, List, Optional
 
@@ -40,7 +41,8 @@ def reft_recovery_ladder(run: str, n: int, total_bytes: int, template: Any,
                          step: Optional[int] = None,
                          target: Optional[RestoreTarget] = None,
                          store=None, store_prefix: str = "families",
-                         store_retry=None, sched=None) -> RestoreResult:
+                         store_retry=None, sched=None,
+                         info: Optional[dict] = None) -> RestoreResult:
     """Tiered recovery (paper §3 step 5 + the tier-4 remote rung):
       in-memory  — every member's SMP segments reachable, plain reassembly;
       raim5      — exactly one member missing, decode it from parity;
@@ -52,14 +54,16 @@ def reft_recovery_ladder(run: str, n: int, total_bytes: int, template: Any,
     Every tier routes through the distributed loader's `LoadPlan`
     executors; `target` restricts the plan to the restoring job's layout
     (reshard-on-restore / partial loads) and the returned
-    `RestoreResult.load` carries the per-phase `LoadStats`.
+    `RestoreResult.load` carries the per-phase `LoadStats`. `info`, when
+    given, is filled as `recovery.restore_state` fills it (the members'
+    clean steps as the in-memory rungs read them among its keys).
     """
     need, device_put = _target_need(template, target)
     target_n = (target.sg_size if target and target.sg_size else n)
     stats = LoadStats()
     stats.target_n = target_n
     try:
-        info: dict = {}
+        info = {} if info is None else info
         state, got_step, extra = restore_state(
             run, n, total_bytes, template, alive_nodes, info=info,
             step=step, need=need, device_put=device_put, stats=stats,
@@ -107,6 +111,7 @@ class ReftCheckpointer(Checkpointer):
     recovery, real fault injection, and elastic healing."""
 
     name = "reft"
+    persist_can_defer = True
 
     def __init__(self, spec: CheckpointSpec, state_template: Any):
         super().__init__(spec)
@@ -168,6 +173,7 @@ class ReftCheckpointer(Checkpointer):
         self.manager = CheckpointManager(spec.ckpt_dir, spec.sg_size,
                                          keep=spec.keep)
         self._degraded_emitted: set = set()
+        self._launched: Optional[int] = None   # see launched()
         self._preempts: dict = {}       # node -> monotonic eviction deadline
         self._preempted: list = []      # nodes whose grace window expired
         # optional FailureObserver attached by the session; its learned
@@ -179,7 +185,13 @@ class ReftCheckpointer(Checkpointer):
         self.poll_persists()           # fold finished async persists first
         t0 = time.perf_counter()
         lv0 = self.group.level_seconds() if wait else None
+        newest = [e.flights[-1] if e.flights else None
+                  for e in self.group.engines]
         started = self.group.snapshot(state, step, extra_meta, wait=wait)
+        # the step, when some member launched it (the whole round or part)
+        self._launched = step if any(
+            e.flights and e.flights[-1] is not newest[i]
+            for i, e in enumerate(self.group.engines)) else None
         if started:
             levels = None
             if wait:
@@ -190,6 +202,9 @@ class ReftCheckpointer(Checkpointer):
                       detail="" if wait else "async-launch")
         self._check_degraded(step)
         return started
+
+    def launched(self, step):
+        return self._launched == step
 
     def set_dirty_provider(self, fn) -> None:
         """Install the delta saving path's dirtiness signal on every
@@ -318,11 +333,21 @@ class ReftCheckpointer(Checkpointer):
         alive = [i for i in range(self.group.n)
                  if self.group.states[i] != NodeState.OFFLINE
                  and not self.group.engines[i].degraded]
+        # a member whose trainer failed (its SMP lives on) is not drained:
+        # its newest flight may still be in the air, and then the ladder
+        # decodes it from parity. Record what the ladder read and what
+        # each engine had seen land before that read began.
+        info: dict = {}
+        began = time.monotonic()
         res = reft_recovery_ladder(
             self.group.run, self.group.n, self.group.total_bytes,
             self.group.template, alive, self.spec.ckpt_dir,
             step=step, target=target, sched=self._restore_sched(),
-            **self._ladder_extra())
+            info=info, **self._ladder_extra())
+        res = dataclasses.replace(
+            res, clean=info.get("clean"),
+            flights={i: self.group.engines[i].flights_at(began)
+                     for i in alive})
         ld = res.load
         self.emit("restore", res.step, seconds=time.perf_counter() - t0,
                   tier=res.tier, nbytes=ld.bytes_read if ld else 0,

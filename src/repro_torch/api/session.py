@@ -130,7 +130,9 @@ class CheckpointSession:
     def after_step(self, state: Any, step: int,
                    extra_meta: dict = None) -> dict:
         """Call once per training step; runs whatever is due.  Returns
-        {"snapshot": bool, "persist": Optional[int]}."""
+        {"snapshot": bool, "launched": bool, "persist": Optional[int]}:
+        "launched" also holds for a capture that went out in part
+        (`Checkpointer.launched`)."""
         # tick the HASC gate: in-flight L1 pumps burst at step boundaries
         # instead of racing the forward/backward pass for host bandwidth
         step_boundary()
@@ -141,17 +143,24 @@ class CheckpointSession:
         if self.spec.auto_tune:
             self._retune()
 
-        did = {"snapshot": False, "persist": None}
+        did = {"snapshot": False, "launched": False, "persist": None}
         if step - self._last_snapshot >= self.snapshot_every:
             if self.checkpointer.snapshot(state, step, extra_meta):
                 self._last_snapshot = step
                 did["snapshot"] = True
+            did["launched"] = did["snapshot"] or \
+                self.checkpointer.launched(step)
         if step - self._last_persist >= self.checkpoint_every:
             # fire-and-overlap: the SMPs stream their shards to disk in
-            # the background; after_step returns without touching disk
+            # the background; after_step returns without touching disk.
+            # Where a round can fire nothing although captures exist
+            # (`persist_can_defer`), it is tried again at the next step,
+            # as a refused snapshot is, instead of a whole cadence later.
             did["persist"] = self.checkpointer.persist(
                 **self._persist_kwargs)
-            self._last_persist = step
+            if did["persist"] is not None or \
+                    not self.checkpointer.persist_can_defer:
+                self._last_persist = step
         # collect async persists that completed since the last step (the
         # backend emits their `persist` events / commits the manifest)
         self.checkpointer.poll_persists()

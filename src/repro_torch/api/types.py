@@ -75,6 +75,13 @@ class RestoreResult:
     # backends that bypass it): tier/source, bytes_read, decoded_bytes,
     # read/decode/h2d seconds, resharded flag (repro_torch.core.loader.LoadStats)
     load: Optional[Any] = None
+    # backends with SMPs, when the ladder read them: each member's clean
+    # steps as that read found them ({member: [steps]}), and each live
+    # member's newest flights as its own engine saw them when the read
+    # began ({member: {"landed": [steps], "in_air": [steps]}}, see
+    # `SnapshotEngine.flights_at`). None for other backends and tiers.
+    clean: Optional[dict] = None
+    flights: Optional[dict] = None
 
 
 @dataclass(frozen=True)
@@ -115,6 +122,10 @@ class Checkpointer(abc.ABC):
     """Pluggable checkpointing backend (see module docstring)."""
 
     name: str = "abstract"
+    # whether `persist()` can fire nothing while captures exist (REFT: no
+    # step clean on every member yet, the first flights still in the air);
+    # the session then tries again at the next step
+    persist_can_defer: bool = False
 
     # events kept for inspection are bounded; stats aggregate ALL events
     # incrementally so stats() stays O(1) (auto-tune calls it every step)
@@ -200,6 +211,14 @@ class Checkpointer(abc.ABC):
 
     def heal(self) -> None:
         """Bring failed members back after a recovery (no-op by default)."""
+
+    def launched(self, step: int) -> bool:
+        """Whether a capture of `step` went out in part: REFT members whose
+        flight slot was busy skip a step the others launch, and the
+        recovery ladder can restore such a step (the skipped members from
+        parity) although `snapshot()` reported it skipped. False where
+        captures go out whole or not at all."""
+        return False
 
     # ------------------------------------------------------- context mgr
     def __enter__(self):

@@ -637,8 +637,12 @@ class PipelineFlight:
                  pipeline: "Optional[SnapshotPipeline]" = None,
                  delta: Optional[FlightDelta] = None,
                  want_digests: bool = False,
-                 fence: Optional[DeviceFence] = None):
+                 fence: Optional[DeviceFence] = None,
+                 record: Any = None):
         self.smp, self.spec, self.cfg = smp, spec, cfg
+        # the engine's record of this flight: its `landed_at` is set to
+        # the monotonic time at which the SMP acknowledged the step clean
+        self.record = record
         self.fence = fence if fence is not None else DeviceFence(leaves)
         self.schedule, self.budget = schedule, budget
         self.leaves, self.step, self.extra_meta = leaves, step, extra_meta
@@ -951,6 +955,8 @@ class PipelineFlight:
             else:
                 self.smp.end(self.step, pickle.dumps(meta), want_crc=True)
             clean = self.smp.wait_clean()
+            if self.record is not None:
+                self.record.landed_at = time.monotonic()
             t_l3 += time.perf_counter() - t0
             self.result = PipelineResult(
                 step=self.step, clean_step=clean, bytes_sent=sent,
@@ -1064,7 +1070,8 @@ class SnapshotPipeline:
         return n
 
     def start(self, leaves: List[Any], step: int, extra_meta: dict,
-              delta: Optional[FlightDelta] = None) -> PipelineFlight:
+              delta: Optional[FlightDelta] = None,
+              record: Any = None) -> PipelineFlight:
         if self.live_flights() >= self.max_flights:
             # the engine refuses before calling; this is the backstop for
             # direct callers — the flight chain (and the SMP's triple
@@ -1083,6 +1090,6 @@ class SnapshotPipeline:
             leaves, step, extra_meta, free=self._free, prev=prev,
             encoder=encoder, affinity=self.affinity, pipeline=self,
             delta=delta, want_digests=self.delta_enabled,
-            fence=DeviceFence(leaves))
+            fence=DeviceFence(leaves), record=record)
         self._last = flight
         return flight.launch()

@@ -172,7 +172,8 @@ def restore_state(run: str, n: int, total_bytes: int, template: Any,
 
     Raises RecoveryError when more than one node per SG is gone (tier 3
     must take over).  When `info` (a dict) is passed it is filled with
-    what actually happened: {"attached", "corrupt", "missing"} — callers
+    what actually happened: {"attached", "clean" (each attached member's
+    clean steps as read), "corrupt", "missing", "stale"} — callers
     derive the recovery tier from it instead of re-probing segments.
     `step` pins a specific snapshot step; `need` restricts the load to
     global byte ranges (partial / resharded restore); `stats` (a
@@ -189,6 +190,8 @@ def restore_state(run: str, n: int, total_bytes: int, template: Any,
         # parity.  Corrupt members (CRC mismatch, folded into the loader's
         # read pass) are demoted the same way.
         clean = {node: set(v.clean_steps()) for node, v in views.items()}
+        if info is not None:
+            info["clean"] = {node: sorted(s) for node, s in clean.items()}
         candidates = sorted(set().union(*clean.values()), reverse=True) \
             if clean else []
         if step is not None:

@@ -24,8 +24,9 @@ import pickle
 import threading
 import time
 import uuid
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -102,6 +103,15 @@ class ReftConfig:
     trace_protocol: bool = field(default_factory=lambda: _trace_default())
 
 
+@dataclass
+class FlightRecord:
+    """A launched flight as its engine saw it: the step, and the monotonic
+    time at which its SMP acknowledged the step clean (None until then,
+    and for a flight that failed)."""
+    step: int
+    landed_at: Optional[float] = None
+
+
 class SnapshotEngine:
     """REFT-Sn for one node of an SG of n members (facade over the HASC
     pipeline; one snapshot in flight at a time)."""
@@ -158,6 +168,9 @@ class SnapshotEngine:
         # to raise durable-tier latency mid-run
         self.persist_delay_s = float(getattr(cfg, "persist_delay_s", 0.0))
         self.last_clean_step = -1
+        # the newest launched flights, oldest first, as this engine saw
+        # them (`flights_at`)
+        self.flights: Deque[FlightRecord] = deque(maxlen=8)
         self._persists: Dict[int, dict] = {}    # seq -> in-flight record
         self.stats = {"snapshots": 0, "bytes_sent": 0, "seconds": 0.0,
                       "l1_seconds": 0.0, "l1_stall_seconds": 0.0,
@@ -235,18 +248,34 @@ class SnapshotEngine:
                 plan = self._tracker.plan(self.last_clean_step,
                                           self._pipeline.schedule, ranges,
                                           self.spec.total_bytes)
+            rec = FlightRecord(int(step))
             self._flights.append(self._pipeline.start(leaves, int(step),
                                                       extra_meta or {},
-                                                      delta=plan))
+                                                      delta=plan,
+                                                      record=rec))
+            self.flights.append(rec)
             if overlapped:
                 self.stats["overlapped_flights"] += 1
             return True
+        rec = FlightRecord(int(step))
         self._thread = threading.Thread(
             target=self._run_serial, args=(leaves, int(step),
-                                           extra_meta or {}),
+                                           extra_meta or {}, rec),
             daemon=True, name=f"snap-n{self.node}")
+        self.flights.append(rec)
         self._thread.start()
         return True
+
+    def flights_at(self, t: float) -> Dict[str, List[int]]:
+        """The newest launched flights as this engine saw them at
+        monotonic time `t`: {"landed": steps whose SMP had acknowledged
+        them clean by then, "in_air": steps launched and not acknowledged
+        (still in flight, or failed)}."""
+        out: Dict[str, List[int]] = {"landed": [], "in_air": []}
+        for rec in list(self.flights):
+            landed = rec.landed_at is not None and rec.landed_at <= t
+            out["landed" if landed else "in_air"].append(rec.step)
+        return out
 
     def set_dirty_provider(self, fn) -> None:
         """Install the delta saving path's dirtiness signal: a callable
@@ -365,7 +394,7 @@ class SnapshotEngine:
             raise err
 
     # ------------------------------------------------- serial baseline
-    def _run_serial(self, leaves, step, extra_meta):
+    def _run_serial(self, leaves, step, extra_meta, rec):
         """Pre-refactor monolithic path (read -> CRC -> blocking ring send
         per bucket), kept as the interference baseline the HASC pipeline
         is measured against (`ReftConfig(pipeline=False)`)."""
@@ -410,6 +439,7 @@ class SnapshotEngine:
             t = time.perf_counter()
             self.smp.end(step, pickle.dumps(meta))
             self.last_clean_step = self.smp.wait_clean()
+            rec.landed_at = time.monotonic()
             l3 += time.perf_counter() - t
             self.stats["snapshots"] += 1
             self.stats["bytes_sent"] += sent

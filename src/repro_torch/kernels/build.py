@@ -4,7 +4,9 @@ Every `csrc/*.cu` compiles with `nvcc` for sm_90a into its own shared
 library with a plain C interface under `<repo>/build/kernels/`, named by a
 hash of the source and the flags, so an edited source rebuilds and an
 unchanged one loads from the cache.  All sources compile in parallel (one
-`nvcc` each, started together).  Nothing here runs at import time.
+`nvcc` each, started together).  `ptxas -v`'s report (registers, spills,
+shared memory of each kernel) is kept beside each library as `.log`.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()          # first use may come from several threads
@@ -64,10 +66,23 @@ def build_all() -> Dict[str, Path]:
                 errors.append(f"{s.name}:\n{log}")
                 tmp.unlink(missing_ok=True)
             else:
+                targets[s.stem].with_suffix(".log").write_text(log)
                 os.replace(tmp, targets[s.stem])   # atomic vs concurrent builds
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return targets
+
+
+def resource_report(name: str) -> list:
+    """ptxas's lines on each kernel of `csrc/<name>.cu` (entry function,
+    registers, spill stores and loads), from its build log; [] when the
+    library was built before logs were kept."""
+    log = _target(CSRC / f"{name}.cu").with_suffix(".log")
+    if not log.exists():
+        return []
+    keep = ("Compiling entry function", "spill stores", "Used ")
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if any(k in ln for k in keep)]
 
 
 def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

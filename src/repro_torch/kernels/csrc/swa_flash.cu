@@ -1,5 +1,7 @@
 // Sliding-window (banded, causal or not) GQA flash attention for Hopper
-// (sm_90a): the forward kernel and the two kernels of its gradient.
+// (sm_90a), fp32 route: the forward kernel and the two kernels of its
+// gradient for float32 inputs. bfloat16 inputs, the type of the training
+// path, run the tensor-core kernels of swa_flash_bf16.cu instead.
 //
 // Replaces the TPU kernel repro/kernels/swa_attention.py::swa_flash (Pallas
 // _flash_kernel). The TPU kernel walks the KV blocks as a sequential grid
@@ -9,55 +11,46 @@
 // block here owns one tile of query rows and walks its band of KV tiles in
 // a loop, with the running state in registers.
 //
-// Contract (the reference's): q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), all of
-// one type T (float or bf16), contiguous; query head h = kv*G + g; output
-// (B,Sq,KV,G,hd) in T; positions count from 0 in both q and k. Query qpos
-// sees key kpos when (!causal || kpos <= qpos) and |qpos - kpos| < window.
+// Contract (the reference's): q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), all
+// float32, contiguous; query head h = kv*G + g; output (B,Sq,KV,G,hd);
+// positions count from 0 in both q and k. Query qpos sees key kpos when
+// (!causal || kpos <= qpos) and |qpos - kpos| < window.
 //
 // Numerics follow the reference (_flash_kernel, models/flash.py): scores
-// are fp32 sums of products of T's values, scaled by hd^-0.5; a masked
-// score is the sentinel NEG_INF = -1e30, not -inf, so a row that is wholly
-// masked in an early tile takes p = exp(0) = 1 there and is wiped exactly
-// by corr = exp(-1e30 - m) = 0 once a tile holds one of its keys; the
-// output is acc / max(l, 1e-30). The forward also writes
-// lse = m + log(l) (fp32, (B,KV,G,Sq)), which the backward reads.
+// are fp32 sums of products, scaled by hd^-0.5; a masked score is the
+// sentinel NEG_INF = -1e30, not -inf, so a row that is wholly masked in an
+// early tile takes p = exp(0) = 1 there and is wiped exactly by
+// corr = exp(-1e30 - m) = 0 once a tile holds one of its keys; the output
+// is acc / max(l, 1e-30). The forward also writes lse = m + log(l) (fp32,
+// (B,KV,G,Sq)), which the backward reads.
 //
 // Backward (no TPU counterpart: the JAX package lets XLA differentiate
 // models/flash.py). With P = exp(s - lse) (0 where masked),
 // D = rowsum(dO o O), dS = P o (dO V^T - D):
-//   swa_bwd_dq_kernel:   one block per (b, kv, g, query tile);
-//                        dQ = scale dS K over the band's KV tiles.
-//   swa_bwd_dkdv_kernel: one block per (b, kv, KV tile); loops over the G
-//                        query heads of the group, then the band's query
-//                        tiles; dV += P^T dO, dK += scale dS^T Q.
+//   fp32_dq_kernel:   one block per (b, kv, g, query tile);
+//                     dQ = scale dS K over the band's KV tiles.
+//   fp32_dkdv_kernel: one block per (b, kv, KV tile); loops over the G
+//                     query heads of the group, then the band's query
+//                     tiles; dV += P^T dO, dK += scale dS^T Q.
 // Both compute D from O and dO themselves. dK and dV sum over g and the
 // query tiles in one block, in a fixed order: no atomics, so the gradient
 // is deterministic.
 //
-// Arithmetic is fp32 FMA on the CUDA cores. Every block has 16 x TY
-// threads; thread (ty, tx) owns rows 4 ty .. 4 ty + 3 of the tile and
-// columns tx + 16 c (c < 4) of a 64-wide score tile, and the accumulator
-// columns 4 tx + 64 e .. + 3 (e < hd / 64). The operand whose rows a
-// thread owns sits transposed in shared memory ([hd][rows], read as float4
-// across its 4 rows, broadcast within a warp); the other sits row-major
-// with rows padded to hd + 4 floats (read as float4 along d, conflict-free
-// for 8 consecutive tx). P and dS go through shared memory, column-major
-// with rows padded to rows + 4.
-//
-// Bound on an H100 SXM at starcoder2-3b's shape (B=1, S=16384, KV=2, G=12,
-// hd=128, window 4096, causal): operations. 58,722,304 useful (q, k) pairs
-// a head x 24 heads; 4 hd FLOP a pair forward, 10 hd backward, at the bf16
-// tensor-core peak (989.4 TFLOP/s): 0.729 ms and 1.823 ms; the bytes
-// (q, k, v, o, lse, and the gradients) are 1-2 % of that. This version does
-// its products on the CUDA cores in fp32 and recomputes S in both backward
-// kernels (14 hd FLOP a pair), so it runs far from that bound; wgmma on
-// bf16 tiles fed by TMA is the way to it.
-#include <cuda_bf16.h>
+// Arithmetic is fp32 FMA on the CUDA cores: fp32 on the tensor cores would
+// be TF32, which misses the fp32 tolerances these kernels are held to.
+// Every block has 16 x TY threads; thread (ty, tx) owns rows
+// 4 ty .. 4 ty + 3 of the tile and columns tx + 16 c (c < 4) of a 64-wide
+// score tile, and the accumulator columns 4 tx + 64 e .. + 3 (e < hd / 64).
+// The operand whose rows a thread owns sits transposed in shared memory
+// ([hd][rows], read as float4 across its 4 rows, broadcast within a warp);
+// the other sits row-major with rows padded to hd + 4 floats (read as
+// float4 along d, conflict-free for 8 consecutive tx). P and dS go through
+// shared memory, column-major with rows padded to rows + 4.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define COLS 64            // must equal COLS in swa_attention.py
-#define FWD_TY 16          // forward rows: 4 * FWD_TY = ROWS in swa_attention.py
+#define COLS 64            // must equal FP32_COLS in swa_attention.py
+#define FWD_TY 16          // forward rows: 4 * FWD_TY = FP32_ROWS in swa_attention.py
 #define NEG_INF (-1e30f)
 
 // --------------------------------------------------------------- helpers
@@ -65,26 +58,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float4 zero4() {
@@ -117,8 +92,8 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int window,
 
 // n rows of hd values starting at row `pos0` of a (S, row_stride) array,
 // into dst[n][LD] (row-major, padded); rows at or past S are zeros.
-template <typename T, int HD, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+template <int HD, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long row_stride, int pos0,
                                           int n, int S) {
   constexpr int LD = HD + 4, C4 = HD / 4;
@@ -132,8 +107,8 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src,
 }
 
 // n rows as above, transposed into dst[HD][n]
-template <typename T, int HD, int NT>
-__device__ __forceinline__ void load_rows_t(float* dst, const T* src,
+template <int HD, int NT>
+__device__ __forceinline__ void load_rows_t(float* dst, const float* src,
                                             long long row_stride, int pos0,
                                             int n, int S) {
   for (int idx = threadIdx.x; idx < n * (HD / 4); idx += NT) {
@@ -206,8 +181,8 @@ __device__ __forceinline__ void store_tile_t(float* pT, const float (&x)[4][4],
 
 // Dsm[i] = sum_d dO[pos0 + i][d] * O[pos0 + i][d] for i < n (0 past S);
 // NT / n threads per row, summed in a fixed order.
-template <typename T, int HD, int NT>
-__device__ __forceinline__ void row_dots(float* Dsm, const T* dO, const T* O,
+template <int HD, int NT>
+__device__ __forceinline__ void row_dots(float* Dsm, const float* dO, const float* O,
                                          long long row_stride, int pos0,
                                          int n, int S) {
   const int tpr = NT / n;                       // 2 or 4: lanes of one row
@@ -215,8 +190,8 @@ __device__ __forceinline__ void row_dots(float* Dsm, const T* dO, const T* O,
   const int pos = pos0 + i;
   float acc = 0.f;
   if (pos < S) {
-    const T* a = dO + (long long)pos * row_stride;
-    const T* b = O + (long long)pos * row_stride;
+    const float* a = dO + (long long)pos * row_stride;
+    const float* b = O + (long long)pos * row_stride;
     for (int d = 4 * part; d < HD; d += 4 * tpr) {
       const float4 x = load4(a + d), y = load4(b + d);
       acc = fmaf(x.x, y.x, acc);
@@ -245,10 +220,10 @@ __device__ __forceinline__ void kv_band(int q_lo, int q_hi, int Sk,
 
 // ------------------------------------------------------------------ forward
 // grid: B * KV * G * ceil(Sq / R) blocks of 16 TY threads.
-template <typename T, int HD, int TY>
+template <int HD, int TY>
 __global__ void __launch_bounds__(16 * TY)
-swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
+fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, int Sq, int Sk, int KV, int G,
                int window, int causal, float scale) {
   constexpr int NT = 16 * TY, R = 4 * TY, NE = HD / 64, LD = HD + 4;
@@ -271,7 +246,7 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long qoff = ((long long)b * Sq * KV + h) * G * HD + (long long)g * HD;
   const long long koff = ((long long)b * Sk * KV + h) * HD;
 
-  load_rows_t<T, HD, NT>(qT, q + qoff, qstride, q_lo, R, Sq);
+  load_rows_t<HD, NT>(qT, q + qoff, qstride, q_lo, R, Sq);
 
   float m[4], l[4], acc[4][HD / 16];
 #pragma unroll
@@ -287,7 +262,7 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = first; kt <= last; ++kt) {
     const int k_lo = kt * COLS;
     __syncthreads();                       // kv and pT free
-    load_rows<T, HD, NT>(kv, k + koff, kstride, k_lo, COLS, Sk);
+    load_rows<HD, NT>(kv, k + koff, kstride, k_lo, COLS, Sk);
     __syncthreads();
     float s[4][4] = {};
     tile_dot<HD, R>(s, qT, kv, ty, tx);
@@ -317,7 +292,7 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     store_tile_t<R>(pT, s, ty, tx);
     __syncthreads();                       // K read, P written
-    load_rows<T, HD, NT>(kv, v + koff, kstride, k_lo, COLS, Sk);
+    load_rows<HD, NT>(kv, v + koff, kstride, k_lo, COLS, Sk);
     __syncthreads();
     tile_acc<HD, R>(acc, pT, kv, ty, tx);
   }
@@ -327,7 +302,7 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q_lo + 4 * ty + r;
     if (qpos >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    T* dst = o + qoff + (long long)qpos * qstride + 4 * tx;
+    float* dst = o + qoff + (long long)qpos * qstride + 4 * tx;
 #pragma unroll
     for (int e = 0; e < NE; ++e)
       store4(dst + 64 * e,
@@ -340,12 +315,12 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // --------------------------------------------------------------- backward
 // dQ. grid: B * KV * G * ceil(Sq / R) blocks of 16 TY threads.
-template <typename T, int HD, int TY>
+template <int HD, int TY>
 __global__ void __launch_bounds__(16 * TY)
-swa_bwd_dq_kernel(const T* __restrict__ dout, const T* __restrict__ q,
-                  const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ o, const float* __restrict__ lse,
-                  T* __restrict__ dq, int Sq, int Sk, int KV, int G,
+fp32_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
+                  const float* __restrict__ k, const float* __restrict__ v,
+                  const float* __restrict__ o, const float* __restrict__ lse,
+                  float* __restrict__ dq, int Sq, int Sk, int KV, int G,
                   int window, int causal, float scale) {
   constexpr int NT = 16 * TY, R = 4 * TY, NE = HD / 64, LD = HD + 4;
   extern __shared__ float smem[];
@@ -370,9 +345,9 @@ swa_bwd_dq_kernel(const T* __restrict__ dout, const T* __restrict__ q,
   const long long koff = ((long long)b * Sk * KV + h) * HD;
   const float* lrow = lse + (((long long)b * KV + h) * G + g) * Sq;
 
-  load_rows_t<T, HD, NT>(qT, q + qoff, qstride, q_lo, R, Sq);
-  load_rows_t<T, HD, NT>(doT, dout + qoff, qstride, q_lo, R, Sq);
-  row_dots<T, HD, NT>(Dsm, dout + qoff, o + qoff, qstride, q_lo, R, Sq);
+  load_rows_t<HD, NT>(qT, q + qoff, qstride, q_lo, R, Sq);
+  load_rows_t<HD, NT>(doT, dout + qoff, qstride, q_lo, R, Sq);
+  row_dots<HD, NT>(Dsm, dout + qoff, o + qoff, qstride, q_lo, R, Sq);
   __syncthreads();
   float Lr[4], Dr[4], acc[4][HD / 16];
 #pragma unroll
@@ -389,12 +364,12 @@ swa_bwd_dq_kernel(const T* __restrict__ dout, const T* __restrict__ q,
   for (int kt = first; kt <= last; ++kt) {
     const int k_lo = kt * COLS;
     __syncthreads();                       // kv and pT free
-    load_rows<T, HD, NT>(kv, v + koff, kstride, k_lo, COLS, Sk);
+    load_rows<HD, NT>(kv, v + koff, kstride, k_lo, COLS, Sk);
     __syncthreads();
     float dp[4][4] = {};
     tile_dot<HD, R>(dp, doT, kv, ty, tx);  // dP = dO V^T
     __syncthreads();                       // V read
-    load_rows<T, HD, NT>(kv, k + koff, kstride, k_lo, COLS, Sk);
+    load_rows<HD, NT>(kv, k + koff, kstride, k_lo, COLS, Sk);
     __syncthreads();
     float s[4][4] = {};
     tile_dot<HD, R>(s, qT, kv, ty, tx);    // S = Q K^T
@@ -418,7 +393,7 @@ swa_bwd_dq_kernel(const T* __restrict__ dout, const T* __restrict__ q,
   for (int r = 0; r < 4; ++r) {
     const int qpos = q_lo + 4 * ty + r;
     if (qpos >= Sq) continue;
-    T* dst = dq + qoff + (long long)qpos * qstride + 4 * tx;
+    float* dst = dq + qoff + (long long)qpos * qstride + 4 * tx;
 #pragma unroll
     for (int e = 0; e < NE; ++e)
       store4(dst + 64 * e,
@@ -430,12 +405,12 @@ swa_bwd_dq_kernel(const T* __restrict__ dout, const T* __restrict__ q,
 
 // dK and dV. grid: B * KV * ceil(Sk / R) blocks of 16 TY threads; the
 // block's rows are KV positions, its score columns query positions.
-template <typename T, int HD, int TY>
+template <int HD, int TY>
 __global__ void __launch_bounds__(16 * TY)
-swa_bwd_dkdv_kernel(const T* __restrict__ dout, const T* __restrict__ q,
-                    const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ o, const float* __restrict__ lse,
-                    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk,
+fp32_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ q,
+                    const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ o, const float* __restrict__ lse,
+                    float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
                     int KV, int G, int window, int causal, float scale) {
   constexpr int NT = 16 * TY, R = 4 * TY, NE = HD / 64, LD = HD + 4;
   extern __shared__ float smem[];
@@ -460,8 +435,8 @@ swa_bwd_dkdv_kernel(const T* __restrict__ dout, const T* __restrict__ q,
   const long long kstride = (long long)KV * HD;
   const long long koff = ((long long)b * Sk * KV + h) * HD;
 
-  load_rows_t<T, HD, NT>(kT, k + koff, kstride, k_lo, R, Sk);
-  load_rows_t<T, HD, NT>(vT, v + koff, kstride, k_lo, R, Sk);
+  load_rows_t<HD, NT>(kT, k + koff, kstride, k_lo, R, Sk);
+  load_rows_t<HD, NT>(vT, v + koff, kstride, k_lo, R, Sk);
   float dK[4][HD / 16], dV[4][HD / 16];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -483,9 +458,9 @@ swa_bwd_dkdv_kernel(const T* __restrict__ dout, const T* __restrict__ q,
     for (int it = first; it <= last; ++it) {
       const int q_lo = it * COLS;
       __syncthreads();                     // qn, don, pT, dsT free
-      load_rows<T, HD, NT>(qn, q + qoff, qstride, q_lo, COLS, Sq);
-      load_rows<T, HD, NT>(don, dout + qoff, qstride, q_lo, COLS, Sq);
-      row_dots<T, HD, NT>(Dsm, dout + qoff, o + qoff, qstride, q_lo, COLS,
+      load_rows<HD, NT>(qn, q + qoff, qstride, q_lo, COLS, Sq);
+      load_rows<HD, NT>(don, dout + qoff, qstride, q_lo, COLS, Sq);
+      row_dots<HD, NT>(Dsm, dout + qoff, o + qoff, qstride, q_lo, COLS,
                           Sq);
       for (int i = threadIdx.x; i < COLS; i += NT)
         Lsm[i] = q_lo + i < Sq ? lrow[q_lo + i] : 0.f;
@@ -519,8 +494,8 @@ swa_bwd_dkdv_kernel(const T* __restrict__ dout, const T* __restrict__ q,
   for (int r = 0; r < 4; ++r) {
     const int kpos = k_lo + 4 * ty + r;
     if (kpos >= Sk) continue;
-    T* dstk = dk + koff + (long long)kpos * kstride + 4 * tx;
-    T* dstv = dv + koff + (long long)kpos * kstride + 4 * tx;
+    float* dstk = dk + koff + (long long)kpos * kstride + 4 * tx;
+    float* dstv = dv + koff + (long long)kpos * kstride + 4 * tx;
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
       store4(dstk + 64 * e,
@@ -533,7 +508,7 @@ swa_bwd_dkdv_kernel(const T* __restrict__ dout, const T* __restrict__ q,
 }
 
 // ------------------------------------------------------------------ launch
-// backward tile rows: 4 * BWD_TY(HD) (BWD_ROWS in swa_attention.py)
+// backward tile rows: 4 * BWD_TY(HD) (FP32_BWD_ROWS in swa_attention.py)
 template <int HD>
 struct BwdTY { static constexpr int value = HD == 256 ? 8 : 16; };
 
@@ -544,7 +519,7 @@ static cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <typename T, int HD>
+template <int HD>
 static cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int Sq, int Sk,
                               int KV, int G, int window, int causal,
@@ -552,16 +527,16 @@ static cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   constexpr int TY = FWD_TY, R = 4 * TY;
   const size_t smem =
       sizeof(float) * (HD * R + COLS * (HD + 4) + COLS * (R + 4));
-  cudaError_t e = allow_smem(swa_fwd_kernel<T, HD, TY>, smem);
+  cudaError_t e = allow_smem(fp32_fwd_kernel<HD, TY>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)B * KV * G * ((Sq + R - 1) / R);
-  swa_fwd_kernel<T, HD, TY><<<(unsigned)blocks, 16 * TY, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, KV, G,
-      window, causal, scale);
+  fp32_fwd_kernel<HD, TY><<<(unsigned)blocks, 16 * TY, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
+      Sk, KV, G, window, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 static cudaError_t launch_bwd(const void* dout, const void* q, const void* k,
                               const void* v, const void* o, const float* lse,
                               void* dq, void* dk, void* dv, int B, int Sq,
@@ -572,26 +547,28 @@ static cudaError_t launch_bwd(const void* dout, const void* q, const void* k,
       (2 * HD * R + COLS * (HD + 4) + COLS * (R + 4) + R);
   const size_t smem_dkdv = sizeof(float) *
       (2 * HD * R + 2 * COLS * (HD + 4) + 2 * COLS * (R + 4) + 2 * COLS);
-  cudaError_t e = allow_smem(swa_bwd_dq_kernel<T, HD, TY>, smem_dq);
+  cudaError_t e = allow_smem(fp32_dq_kernel<HD, TY>, smem_dq);
   if (e != cudaSuccess) return e;
-  e = allow_smem(swa_bwd_dkdv_kernel<T, HD, TY>, smem_dkdv);
+  e = allow_smem(fp32_dkdv_kernel<HD, TY>, smem_dkdv);
   if (e != cudaSuccess) return e;
   const long long nq = (Sq + R - 1) / R, nk = (Sk + R - 1) / R;
-  swa_bwd_dq_kernel<T, HD, TY>
+  fp32_dq_kernel<HD, TY>
       <<<(unsigned)((long long)B * KV * G * nq), 16 * TY, smem_dq, stream>>>(
-          (const T*)dout, (const T*)q, (const T*)k, (const T*)v,
-          (const T*)o, lse, (T*)dq, Sq, Sk, KV, G, window, causal, scale);
+          (const float*)dout, (const float*)q, (const float*)k,
+          (const float*)v, (const float*)o, lse, (float*)dq, Sq, Sk, KV, G,
+          window, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  swa_bwd_dkdv_kernel<T, HD, TY>
+  fp32_dkdv_kernel<HD, TY>
       <<<(unsigned)((long long)B * KV * nk), 16 * TY, smem_dkdv, stream>>>(
-          (const T*)dout, (const T*)q, (const T*)k, (const T*)v,
-          (const T*)o, lse, (T*)dk, (T*)dv, Sq, Sk, KV, G, window, causal,
-          scale);
+          (const float*)dout, (const float*)q, (const float*)k,
+          (const float*)v, (const float*)o, lse, (float*)dk, (float*)dv, Sq,
+          Sk, KV, G, window, causal, scale);
   return cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 bfloat16. hd: 64, 128 or 256.
+// dtype must be 0 (float32): bfloat16 inputs go to swa_flash_bf16.cu.
+// hd: 64, 128 or 256.
 extern "C" int reft_swa_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int Sq, int Sk,
                             int KV, int G, int hd, int window, int causal,
@@ -599,22 +576,15 @@ extern "C" int reft_swa_fwd(const void* q, const void* k, const void* v,
                             void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (window < 1 || Sq < 1 || Sk < 1 || (dtype != 0 && dtype != 1))
+  if (window < 1 || Sq < 1 || Sk < 1 || dtype != 0)
     return (int)cudaErrorInvalidValue;
 #define FWD_ARGS                                                         \
   q, k, v, o, (float*)lse, B, Sq, Sk, KV, G, window, causal, scale,      \
       (cudaStream_t)stream
-  if (dtype == 0) {
-    if (hd == 64) e = launch_fwd<float, 64>(FWD_ARGS);
-    else if (hd == 128) e = launch_fwd<float, 128>(FWD_ARGS);
-    else if (hd == 256) e = launch_fwd<float, 256>(FWD_ARGS);
-    else return (int)cudaErrorInvalidValue;
-  } else {
-    if (hd == 64) e = launch_fwd<__nv_bfloat16, 64>(FWD_ARGS);
-    else if (hd == 128) e = launch_fwd<__nv_bfloat16, 128>(FWD_ARGS);
-    else if (hd == 256) e = launch_fwd<__nv_bfloat16, 256>(FWD_ARGS);
-    else return (int)cudaErrorInvalidValue;
-  }
+  if (hd == 64) e = launch_fwd<64>(FWD_ARGS);
+  else if (hd == 128) e = launch_fwd<128>(FWD_ARGS);
+  else if (hd == 256) e = launch_fwd<256>(FWD_ARGS);
+  else return (int)cudaErrorInvalidValue;
 #undef FWD_ARGS
   return (int)e;
 }
@@ -627,22 +597,15 @@ extern "C" int reft_swa_bwd(const void* dout, const void* q, const void* k,
                             void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (window < 1 || Sq < 1 || Sk < 1 || (dtype != 0 && dtype != 1))
+  if (window < 1 || Sq < 1 || Sk < 1 || dtype != 0)
     return (int)cudaErrorInvalidValue;
 #define BWD_ARGS                                                         \
   dout, q, k, v, o, (const float*)lse, dq, dk, dv, B, Sq, Sk, KV, G,     \
       window, causal, scale, (cudaStream_t)stream
-  if (dtype == 0) {
-    if (hd == 64) e = launch_bwd<float, 64>(BWD_ARGS);
-    else if (hd == 128) e = launch_bwd<float, 128>(BWD_ARGS);
-    else if (hd == 256) e = launch_bwd<float, 256>(BWD_ARGS);
-    else return (int)cudaErrorInvalidValue;
-  } else {
-    if (hd == 64) e = launch_bwd<__nv_bfloat16, 64>(BWD_ARGS);
-    else if (hd == 128) e = launch_bwd<__nv_bfloat16, 128>(BWD_ARGS);
-    else if (hd == 256) e = launch_bwd<__nv_bfloat16, 256>(BWD_ARGS);
-    else return (int)cudaErrorInvalidValue;
-  }
+  if (hd == 64) e = launch_bwd<64>(BWD_ARGS);
+  else if (hd == 128) e = launch_bwd<128>(BWD_ARGS);
+  else if (hd == 256) e = launch_bwd<256>(BWD_ARGS);
+  else return (int)cudaErrorInvalidValue;
 #undef BWD_ARGS
   return (int)e;
 }

@@ -60,5 +60,6 @@ def ssd_scan(u, a, Bm, Cm, h0=None, *, chunk: int = 128):
 
 def swa_attention(q, k, v, *, window=None, causal: bool = True):
     """Banded flash attention; window is a python int (None = full).  The
-    tile sizes are the kernel's own (`swa_attention.COLS`, `ROWS`)."""
+    tile sizes are the kernels' own (`swa_attention.BF16_TILES` and the
+    fp32 route's `FP32_COLS`, `FP32_ROWS`)."""
     return _swa_flash_kernel(q, k, v, window=window, causal=causal)

@@ -2,11 +2,20 @@
 backward kernels.
 
 Replaces the TPU kernel `repro/kernels/swa_attention.py::swa_flash`
-(Pallas `_flash_kernel`) with a hand-written CUDA kernel for Hopper
-(`csrc/swa_flash.cu`, built for sm_90a by `kernels.build`), and adds two
-kernels for its gradient: the JAX package trains by letting XLA
-differentiate `models.flash.flash_attention`, while here `SWAFlash` (a
-`torch.autograd.Function`) pairs the forward kernel with them.
+(Pallas `_flash_kernel`) with hand-written CUDA kernels for Hopper, built
+for sm_90a by `kernels.build`, and adds kernels for its gradient: the JAX
+package trains by letting XLA differentiate
+`models.flash.flash_attention`, while here `SWAFlash` (a
+`torch.autograd.Function`) pairs the forward kernel with them. Two routes,
+by the inputs' type:
+
+* bfloat16 (the training path): `csrc/swa_flash_bf16.cu`, every product on
+  the tensor cores (wgmma, bf16 operands, fp32 accumulators) with TMA
+  tiles through a ring in shared memory; P and dS are rounded to bf16
+  before the products that take them, and the backward starts with a
+  pre-pass that writes D = rowsum(dO o O) once a row;
+* float32: `csrc/swa_flash.cu`, fp32 FMA on the CUDA cores (fp32 on the
+  tensor cores would be TF32).
 
 Contract (the reference's): q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), float32
 or bfloat16, all of one type; query head h = kv*G + g; the output is
@@ -27,12 +36,24 @@ import torch
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import FULL_WINDOW
 
-# Kernel geometry; each must equal its counterpart in csrc/swa_flash.cu.
-COLS = 64                      # score-tile columns: KV (forward, dQ) or
+# Geometry of the fp32 kernels; each must equal its counterpart in
+# csrc/swa_flash.cu.
+FP32_COLS = 64                 # score-tile columns: KV (forward, dQ) or
                                # query (dK/dV) positions per tile
-ROWS = 64                      # query rows per forward block (4 * FWD_TY)
-BWD_ROWS = {64: 64, 128: 64, 256: 32}   # rows per backward block, by hd
-HEAD_DIMS = tuple(BWD_ROWS)
+FP32_ROWS = 64                 # query rows per forward block (4 * FWD_TY)
+FP32_BWD_ROWS = {64: 64, 128: 64, 256: 32}   # rows per backward block
+# Geometry of the bf16 kernels; each must equal its counterpart in
+# csrc/swa_flash_bf16.cu (STAGES, FWD_ROWS, DQ_ROWS, DKDV_COLS, Geo<hd>).
+BF16_STAGES = 2                # ring slots of every kernel
+BF16_FWD_ROWS = 128            # query rows per forward block
+BF16_DQ_ROWS = 128             # query rows per dQ block
+BF16_DKDV_COLS = 64            # query rows per dK/dV ring tile
+BF16_TILES = {                 # by hd: keys per forward and dQ ring tile,
+    64: {"fwd_cols": 128, "dq_cols": 64, "dkdv_rows": 128},   # KV rows per
+    128: {"fwd_cols": 128, "dq_cols": 64, "dkdv_rows": 128},  # dK/dV block
+    256: {"fwd_cols": 64, "dq_cols": 32, "dkdv_rows": 64},
+}
+HEAD_DIMS = tuple(BF16_TILES)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -100,15 +121,18 @@ def _check_cuda(*named) -> None:
 
 
 # ------------------------------------------------------------------ kernels
-def _lib():
+def _lib(dtype):
+    """The fp32 kernels' library or the bf16 kernels', by input type."""
     from repro_torch.kernels.build import library
+    if dtype == torch.bfloat16:
+        return library("swa_flash_bf16", _BF16_SIGNATURES)
     return library("swa_flash", _SIGNATURES)
 
 
-def _raise_on(rc: int, what: str) -> None:
+def _raise_on(rc: int, what: str, dtype) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: "
-                           f"{_lib().reft_swa_error_string(rc).decode()}")
+                           f"{_lib(dtype).reft_swa_error_string(rc).decode()}")
 
 
 def _dims(q, k, window, causal):
@@ -127,10 +151,10 @@ def swa_flash_fwd(q, k, v, *, window, causal=True):
     B, Sq, KV, G, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, KV, G, Sq), dtype=torch.float32, device=q.device)
-    rc = _lib().reft_swa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             o.data_ptr(), lse.data_ptr(),
-                             *_dims(q, k, window, causal))
-    _raise_on(rc, "swa_flash_fwd")
+    rc = _lib(q.dtype).reft_swa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    o.data_ptr(), lse.data_ptr(),
+                                    *_dims(q, k, window, causal))
+    _raise_on(rc, "swa_flash_fwd", q.dtype)
     swa_flash_fwd.launches += 1
     return o, lse
 
@@ -139,8 +163,9 @@ swa_flash_fwd.launches = 0     # kernel launches (not plain-version calls)
 
 
 def swa_flash_bwd(do, q, k, v, o, lse, *, window, causal=True):
-    """Backward kernels (dQ, then dK and dV; one launch count a call).
-    -> (dq, dk, dv) in the inputs' type and shapes."""
+    """Backward kernels (bf16: the D pre-pass, dQ, then dK and dV; fp32:
+    dQ, then dK and dV; one launch count a call). -> (dq, dk, dv) in the
+    inputs' type and shapes."""
     _check(q, k, v)
     B, Sq, KV, G, hd = q.shape
     for name, t, shape, dtype in (("do", do, q.shape, q.dtype),
@@ -159,11 +184,14 @@ def swa_flash_bwd(do, q, k, v, o, lse, *, window, causal=True):
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = _lib().reft_swa_bwd(do.data_ptr(), q.data_ptr(), k.data_ptr(),
-                             v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                             *_dims(q, k, window, causal))
-    _raise_on(rc, "swa_flash_bwd")
+    ptrs = [do, q, k, v, o, lse, dq, dk, dv]
+    if q.dtype == torch.bfloat16:
+        # D = rowsum(dO o O), written by the pre-pass, read by both kernels
+        ptrs.insert(6, torch.empty((B, KV, G, Sq), dtype=torch.float32,
+                                   device=q.device))
+    rc = _lib(q.dtype).reft_swa_bwd(*(t.data_ptr() for t in ptrs),
+                                    *_dims(q, k, window, causal))
+    _raise_on(rc, "swa_flash_bwd", q.dtype)
     swa_flash_bwd.launches += 1
     return dq, dk, dv
 
@@ -179,6 +207,11 @@ _SIGNATURES = {
     # do, q, k, v, o, lse, dq, dk, dv
     "reft_swa_bwd": ([_P] * 9 + _DIMS, _I),
     "reft_swa_error_string": ([_I], ctypes.c_char_p),
+}
+_BF16_SIGNATURES = {
+    **_SIGNATURES,
+    # do, q, k, v, o, lse, D, dq, dk, dv
+    "reft_swa_bwd": ([_P] * 10 + _DIMS, _I),
 }
 
 

@@ -106,7 +106,10 @@ def parse_args(argv=None):
 
 def run(argv=None) -> dict:
     """Train as the CLI does; returns a report: losses, per-step seconds,
-    recoveries [{tier, step, bit_exact, seconds}], snapshot CRCs, backend stats
+    recoveries [{tier, step, bit_exact, kind, seconds, clean, flights}]
+    (under REFT, each member's clean steps as the ladder read them and
+    its flights as its engine saw them then; see `RestoreResult`),
+    snapshot CRCs (of every step some member launched), backend stats
     (persists, overlap, uploads, scrub passes among them), the disk
     backends' last save split into phases, and the launches of each CUDA
     kernel during the run."""
@@ -176,10 +179,14 @@ def run(argv=None) -> dict:
             bit_exact = state_crc(res.state) == saved_crc.get(res.step)
         print(f"[{what}] tier={res.tier} step={res.step}"
               + ("" if bit_exact is None else f" bit_exact={bit_exact}")
+              + "".join(f" in_air=node{m}@{s}"
+                        for m, f in sorted((res.flights or {}).items())
+                        for s in f["in_air"])
               + _load_stats_str(res.load))
         report["recoveries"].append({"tier": res.tier, "step": res.step,
                                      "bit_exact": bit_exact, "kind": what,
-                                     "seconds": seconds})
+                                     "seconds": seconds, "clean": res.clean,
+                                     "flights": res.flights})
         if bit_exact is False:
             raise RuntimeError(f"restored state at step {res.step} differs "
                                f"from the state saved at that step")
@@ -197,7 +204,7 @@ def run(argv=None) -> dict:
             report["losses"].append(float(metrics["loss"]))
             did = sess.after_step(state, step, extra_meta=ds.state())
             report["step_seconds"].append(time.perf_counter() - t_step)
-            if did["snapshot"] and args.verify_restores:
+            if args.verify_restores and did["launched"]:
                 saved_crc[step] = state_crc(state)
 
             if step in injections:

@@ -11,19 +11,26 @@ the CPU.
   the same band (rtol 1e-5, atol 1e-6).
 * The plain version's autograd against `jax.vjp` of
   `repro.models.flash.flash_attention` (float32, rtol 1e-4, atol 1e-5).
-* Replays of the three CUDA kernels' algorithms (csrc/swa_flash.cu) in
-  plain torch loops: their tiles, band tile ranges, the NEG_INF sentinel,
-  lse, D and the fixed-order group sums of dK and dV. The kernels run only
-  on the card, so this is where their algebra is checked, against the
-  plain version (atol 2e-5, rtol 1e-4) and its autograd (rtol 1e-4, atol
-  1e-5: the same float32 math, summed in another order); and `SWAFlash`
-  driven by the replays in place of the kernels, with and without
-  `torch.utils.checkpoint` (rtol 1e-4, atol 1e-5 of the largest gradient:
-  that loss sums squares, so its gradients run large).
-* The wrappers' input checks, and `swa_flash` on CPU and meta tensors.
+* Replays of the CUDA kernels' algorithms in plain torch loops: their
+  tiles, band tile ranges, the NEG_INF sentinel, lse, D and the
+  fixed-order group sums of dK and dV. The kernels run only on the card,
+  so this is where their algebra is checked. The fp32 route's three
+  kernels (csrc/swa_flash.cu) against the plain version (atol 2e-5, rtol
+  1e-4) and its autograd (rtol 1e-4, atol 1e-5: the same float32 math,
+  summed in another order); the bf16 route's (csrc/swa_flash_bf16.cu: its
+  tile geometry, P and dS rounded to bf16 before the products that take
+  them, D from the pre-pass) against JAX `flash_attention` and its
+  `jax.vjp` on the same bf16 inputs (atol and rtol 3e-2); the geometry
+  constants of swa_attention.py against both sources, parsed; and
+  `SWAFlash` driven by the fp32 replays in place of the kernels, with and
+  without `torch.utils.checkpoint` (rtol 1e-4, atol 1e-5 of the largest
+  gradient: that loss sums squares, so its gradients run large).
+* The wrappers' input checks, `swa_flash` on CPU and meta tensors, and
+  `build.resource_report` (the bf16 kernels' registers and spills).
 """
 import importlib
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -161,29 +168,38 @@ def _visible(qpos, kpos, window, causal, Sq, Sk):
         & (kpos[None, :] - qpos[:, None] < window)
 
 
-def kv_band(q_lo, q_hi, Sk, window, causal):
-    """The KV tiles (of COLS) that meet query rows [q_lo, q_hi]."""
-    nk = -(-Sk // K.COLS)
+def _bf16(x):
+    """x rounded to bfloat16, back in float32: a rounding point of the
+    bf16 kernels (P and dS before the products that take them)."""
+    return x.to(torch.bfloat16).float()
+
+
+def kv_band(q_lo, q_hi, Sk, window, causal, C=K.FP32_COLS):
+    """The KV tiles (of C) that meet query rows [q_lo, q_hi]."""
+    nk = -(-Sk // C)
     lo = max(0, q_lo - window + 1)
     hi = q_hi if causal else q_hi + window - 1
-    return range(lo // K.COLS, min(nk - 1, hi // K.COLS) + 1)
+    return range(lo // C, min(nk - 1, hi // C) + 1)
 
 
-def q_band(k_lo, k_hi, Sq, window, causal):
-    """The query tiles (of COLS) that meet KV rows [k_lo, k_hi]."""
-    nq = -(-Sq // K.COLS)
+def q_band(k_lo, k_hi, Sq, window, causal, C=K.FP32_COLS):
+    """The query tiles (of C) that meet KV rows [k_lo, k_hi]."""
+    nq = -(-Sq // C)
     lo = k_lo if causal else max(0, k_lo - window + 1)
     hi = k_hi + window - 1
-    return range(lo // K.COLS, min(nq - 1, hi // K.COLS) + 1)
+    return range(lo // C, min(nq - 1, hi // C) + 1)
 
 
-def replay_forward(q, k, v, window, causal):
-    """swa_fwd_kernel: block (b, kv, g, tile of ROWS query rows) walks its
-    band's KV tiles with the online softmax in fp32; masked scores are
-    NEG_INF; o = acc / max(l, 1e-30) in q's type, lse = m + log l."""
+def replay_forward(q, k, v, window, causal, *, rows=K.FP32_ROWS,
+                   cols=K.FP32_COLS, lowp=False):
+    """The forward kernels: block (b, kv, g, tile of `rows` query rows)
+    walks its band's KV tiles (of `cols`) with the online softmax in fp32;
+    masked scores are NEG_INF; o = acc / max(l, 1e-30) in q's type,
+    lse = m + log l. `lowp` (the bf16 kernel): P is rounded to bf16 before
+    P V; l sums the unrounded p."""
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
-    R, C, sc = K.ROWS, K.COLS, _scale(hd)
+    R, C, sc = rows, cols, _scale(hd)
     o = torch.zeros(B, Sq, KV, G, hd)
     lse = torch.zeros(B, KV, G, Sq)
     for q_lo in range(0, Sq, R):
@@ -193,7 +209,7 @@ def replay_forward(q, k, v, window, causal):
         m = torch.full((B, KV, G, R), NEG_INF)
         l = torch.zeros(B, KV, G, R)
         acc = torch.zeros(B, KV, G, R, hd)
-        for kt in kv_band(q_lo, q_hi, Sk, window, causal):
+        for kt in kv_band(q_lo, q_hi, Sk, window, causal, C):
             kk, vv = (_rows(t, kt * C, C, Sk) for t in (k, v))
             s = torch.einsum("brkgd,bckd->bkgrc", qt, kk)
             ok = _visible(qpos, kt * C + torch.arange(C), window, causal,
@@ -204,8 +220,8 @@ def replay_forward(q, k, v, window, causal):
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
             m = m_new
-            acc = acc * corr[..., None] + torch.einsum("bkgrc,bckd->bkgrd",
-                                                       p, vv)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgrc,bckd->bkgrd", _bf16(p) if lowp else p, vv)
         n = q_hi - q_lo + 1
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         o[:, q_lo:q_hi + 1] = out.permute(0, 3, 1, 2, 4)[:, :n]
@@ -218,23 +234,36 @@ def _row_dots(do, o, lo, n, S):
     return (_rows(do, lo, n, S) * _rows(o, lo, n, S)).sum(-1)
 
 
-def replay_bwd_dq(do, q, k, v, o, lse, window, causal):
-    """swa_bwd_dq_kernel: block (b, kv, g, tile of BWD_ROWS[hd] query
-    rows) computes D, then per KV tile of its band dP = dO V^T,
-    P = exp(S - lse), dS = P (dP - D), dQ += dS K; dq = scale dQ."""
+def replay_pre_pass(do, o):
+    """dot_kernel (bf16 backward): D = rowsum(dO o O) in fp32, once a row,
+    as (B, KV, G, Sq)."""
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 3, 1)
+
+
+def replay_bwd_dq(do, q, k, v, o, lse, window, causal, *, rows=None,
+                  cols=K.FP32_COLS, lowp=False, D=None):
+    """The dQ kernels: block (b, kv, g, tile of `rows` query rows; fp32:
+    FP32_BWD_ROWS[hd]) takes D (fp32: its own, from dO and O; bf16: the
+    pre-pass's), then per KV tile (of `cols`) of its band dP = dO V^T,
+    P = exp(S - lse), dS = P (dP - D), dQ += dS K; dq = scale dQ. `lowp`:
+    dS is rounded to bf16 before dS K."""
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
-    R, C, sc = K.BWD_ROWS[hd], K.COLS, _scale(hd)
+    R, C, sc = rows or K.FP32_BWD_ROWS[hd], cols, _scale(hd)
     dq = torch.zeros(B, Sq, KV, G, hd)
     for q_lo in range(0, Sq, R):
         q_hi = min(q_lo + R, Sq) - 1
         qt, dot = _rows(q, q_lo, R, Sq), _rows(do, q_lo, R, Sq)
-        D = _row_dots(do, o, q_lo, R, Sq).permute(0, 2, 3, 1)  # (B,KV,G,R)
+        Dt = torch.zeros(B, KV, G, R)
         L = torch.zeros(B, KV, G, R)
+        if D is None:
+            Dt = _row_dots(do, o, q_lo, R, Sq).permute(0, 2, 3, 1)
+        else:
+            Dt[..., :q_hi - q_lo + 1] = D[..., q_lo:q_hi + 1]
         L[..., :q_hi - q_lo + 1] = lse[..., q_lo:q_hi + 1]
         qpos = q_lo + torch.arange(R)
         acc = torch.zeros(B, KV, G, R, hd)
-        for kt in kv_band(q_lo, q_hi, Sk, window, causal):
+        for kt in kv_band(q_lo, q_hi, Sk, window, causal, C):
             kk, vv = (_rows(t, kt * C, C, Sk) for t in (k, v))
             dp = torch.einsum("brkgd,bckd->bkgrc", dot, vv)
             s = torch.einsum("brkgd,bckd->bkgrc", qt, kk)
@@ -242,20 +271,24 @@ def replay_bwd_dq(do, q, k, v, o, lse, window, causal):
                           Sq, Sk)
             p = torch.exp(torch.where(ok, s * sc, torch.tensor(NEG_INF))
                           - L[..., None])
-            ds = p * (dp - D[..., None])
-            acc = acc + torch.einsum("bkgrc,bckd->bkgrd", ds, kk)
+            ds = p * (dp - Dt[..., None])
+            acc = acc + torch.einsum("bkgrc,bckd->bkgrd",
+                                     _bf16(ds) if lowp else ds, kk)
         n = q_hi - q_lo + 1
         dq[:, q_lo:q_hi + 1] = (acc * sc).permute(0, 3, 1, 2, 4)[:, :n]
     return dq.to(q.dtype)
 
 
-def replay_bwd_dkdv(do, q, k, v, o, lse, window, causal):
-    """swa_bwd_dkdv_kernel: block (b, kv, tile of BWD_ROWS[hd] KV rows)
-    loops over g, then over its band's query tiles (of COLS) in order,
-    and sums dV += P^T dO, dK += dS^T Q; dk = scale dK."""
+def replay_bwd_dkdv(do, q, k, v, o, lse, window, causal, *, rows=None,
+                    cols=K.FP32_COLS, lowp=False, D=None):
+    """The dK/dV kernels: block (b, kv, tile of `rows` KV rows; fp32:
+    FP32_BWD_ROWS[hd]) loops over g, then over its band's query tiles (of
+    `cols`) in order, and sums dV += P^T dO, dK += dS^T Q; dk = scale dK.
+    `lowp`: P^T and dS^T are rounded to bf16 before those products, and D
+    is the pre-pass's."""
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
-    R, C, sc = K.BWD_ROWS[hd], K.COLS, _scale(hd)
+    R, C, sc = rows or K.FP32_BWD_ROWS[hd], cols, _scale(hd)
     dk = torch.zeros(B, Sk, KV, hd)
     dv = torch.zeros(B, Sk, KV, hd)
     for k_lo in range(0, Sk, R):
@@ -265,13 +298,18 @@ def replay_bwd_dkdv(do, q, k, v, o, lse, window, causal):
         dK = torch.zeros(B, KV, R, hd)
         dV = torch.zeros(B, KV, R, hd)
         for g in range(G):
-            for it in q_band(k_lo, k_hi, Sq, window, causal):
+            for it in q_band(k_lo, k_hi, Sq, window, causal, C):
                 q_lo = it * C
                 qt = _rows(q[:, :, :, g], q_lo, C, Sq)      # (B,C,KV,hd)
                 dot = _rows(do[:, :, :, g], q_lo, C, Sq)
-                D = _row_dots(do[:, :, :, g], o[:, :, :, g], q_lo, C, Sq)
-                L = torch.zeros(B, KV, C)
                 n = min(q_lo + C, Sq) - q_lo
+                if D is None:
+                    Dt = _row_dots(do[:, :, :, g], o[:, :, :, g], q_lo, C,
+                                   Sq)                      # (B,C,KV)
+                else:
+                    Dt = torch.zeros(B, C, KV)
+                    Dt[:, :n] = D[:, :, g, q_lo:q_lo + n].permute(0, 2, 1)
+                L = torch.zeros(B, KV, C)
                 L[..., :n] = lse[:, :, g, q_lo:q_lo + n]
                 s = torch.einsum("brkd,bckd->bkrc", kk, qt)
                 dp = torch.einsum("brkd,bckd->bkrc", vv, dot)
@@ -280,7 +318,9 @@ def replay_bwd_dkdv(do, q, k, v, o, lse, window, causal):
                 p = torch.exp(torch.where(ok, s * sc,
                                           torch.tensor(NEG_INF))
                               - L[:, :, None, :])
-                ds = p * (dp - D.permute(0, 2, 1)[:, :, None, :])
+                ds = p * (dp - Dt.permute(0, 2, 1)[:, :, None, :])
+                if lowp:
+                    p, ds = _bf16(p), _bf16(ds)
                 dV = dV + torch.einsum("bkrc,bckd->bkrd", p, dot)
                 dK = dK + torch.einsum("bkrc,bckd->bkrd", ds, qt)
         n = k_hi - k_lo + 1
@@ -290,9 +330,31 @@ def replay_bwd_dkdv(do, q, k, v, o, lse, window, causal):
 
 
 def replay_backward(do, q, k, v, o, lse, *, window, causal=True):
-    """What `swa_flash_bwd` returns: the dQ kernel, then the dK/dV one."""
+    """What `swa_flash_bwd` returns on fp32 inputs: the dQ kernel, then the
+    dK/dV one."""
     dq = replay_bwd_dq(do, q, k, v, o, lse, window, causal)
     return (dq, *replay_bwd_dkdv(do, q, k, v, o, lse, window, causal))
+
+
+def replay_forward_bf16(q, k, v, window, causal):
+    """What `swa_flash_fwd` returns on bf16 inputs (fwd_kernel of
+    csrc/swa_flash_bf16.cu), at its tile geometry."""
+    t = K.BF16_TILES[q.shape[-1]]
+    return replay_forward(q, k, v, window, causal, rows=K.BF16_FWD_ROWS,
+                          cols=t["fwd_cols"], lowp=True)
+
+
+def replay_backward_bf16(do, q, k, v, o, lse, *, window, causal=True):
+    """What `swa_flash_bwd` returns on bf16 inputs: the D pre-pass, the dQ
+    kernel, then the dK/dV one, at their tile geometry."""
+    t = K.BF16_TILES[q.shape[-1]]
+    D = replay_pre_pass(do, o)
+    dq = replay_bwd_dq(do, q, k, v, o, lse, window, causal,
+                       rows=K.BF16_DQ_ROWS, cols=t["dq_cols"], lowp=True,
+                       D=D)
+    return (dq, *replay_bwd_dkdv(do, q, k, v, o, lse, window, causal,
+                                 rows=t["dkdv_rows"],
+                                 cols=K.BF16_DKDV_COLS, lowp=True, D=D))
 
 
 REPLAY_CASES = [
@@ -335,33 +397,90 @@ def test_replayed_forward_wipes_rows_that_start_masked():
     (with -inf they would be NaN)."""
     x = _qkv(1, 192, 1, 1, 64, seed=5)
     tq, tk, tv = (_t(x[n]) for n in "qkv")
-    q_lo = K.ROWS * 2                                # rows 128..191
-    first = kv_band(q_lo, q_lo + K.ROWS - 1, 192, 70, True)[0]
-    assert first * K.COLS + K.COLS - 1 < q_lo + K.ROWS - 1 - 70 + 1
+    q_lo = K.FP32_ROWS * 2                           # rows 128..191
+    first = kv_band(q_lo, q_lo + K.FP32_ROWS - 1, 192, 70, True)[0]
+    assert first * K.FP32_COLS + K.FP32_COLS - 1 \
+        < q_lo + K.FP32_ROWS - 1 - 70 + 1
     o, lse = replay_forward(tq, tk, tv, 70, True)
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
     np.testing.assert_allclose(o.numpy(), K.swa_flash_plain(
         tq, tk, tv, window=70, causal=True).numpy(), atol=2e-5, rtol=1e-4)
 
 
-def test_replayed_kernels_bf16():
-    """bf16 inputs as on the path: the replays (fp32 math, bf16 out)
-    against the plain version on the same bf16 inputs (atol, rtol 3e-2)."""
-    x = _qkv(1, 160, 2, 2, 64, seed=6)
-    tq, tk, tv, tdo = (_t(x[n], torch.bfloat16)
+@pytest.mark.parametrize("B,S,KV,G,hd,w,causal", REPLAY_CASES + [
+    (1, 160, 2, 2, 64, 48, True)])     # the path's bf16 at a narrow width
+def test_replayed_kernels_bf16(B, S, KV, G, hd, w, causal):
+    """The bf16 kernels' replays (tile geometry of BF16_TILES, P and dS
+    rounded to bf16 before the products that take them, D from the
+    pre-pass, bf16 out) against the JAX package's
+    `models/flash.py::flash_attention` and its `jax.vjp` on the same
+    numpy-seeded bf16 inputs: atol and rtol 3e-2, the bf16 tolerance of
+    tests/test_kernels.py."""
+    x = _qkv(B, S, KV, G, hd, seed=6)
+    W = K._window(w)
+    bf = {n: jnp.asarray(x[n]).astype(jnp.bfloat16)
+          for n in ("q", "k", "v", "do")}
+    tq, tk, tv, tdo = (_t(np.asarray(bf[n], np.float32), torch.bfloat16)
                        for n in ("q", "k", "v", "do"))
-    o, lse = replay_forward(tq, tk, tv, 48, True)
+    o, lse = replay_forward_bf16(tq, tk, tv, W, causal)
     assert o.dtype == torch.bfloat16
-    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
-    want = K.swa_flash_plain(*leaves, window=48, causal=True)
-    np.testing.assert_allclose(o.float().numpy(), want.detach().float()
-                               .numpy(), atol=3e-2, rtol=3e-2)
-    wg = torch.autograd.grad(want, leaves, tdo)
-    got = replay_backward(tdo, tq, tk, tv, o, lse, window=48, causal=True)
-    for name, g, w in zip("qkv", got, wg):
+    want_o, vjp = jax.vjp(lambda q, k, v: jax_flash(
+        q, k, v, window=W, causal=causal, block_q=32, block_k=32,
+        band=w), bf["q"], bf["k"], bf["v"])
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(want_o, np.float32), atol=3e-2,
+                               rtol=3e-2)
+    got = replay_backward_bf16(tdo, tq, tk, tv, o, lse, window=W,
+                               causal=causal)
+    for name, g, wg in zip("qkv", got, vjp(bf["do"])):
         assert g.dtype == torch.bfloat16
-        np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
-                                   atol=3e-2, rtol=3e-2, err_msg=name)
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(wg, np.float32), atol=3e-2,
+                                   rtol=3e-2, err_msg=name)
+
+
+def test_replayed_pre_pass_is_the_row_dots():
+    """The bf16 backward's D pre-pass equals the fp32 kernels' per-tile
+    row dots on the same values."""
+    x = _qkv(1, 150, 2, 3, 64, seed=12)
+    do, o = (_t(x[n], torch.bfloat16) for n in ("do", "q"))
+    D = replay_pre_pass(do, o)
+    want = _row_dots(do, o, 0, 150, 150).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(D.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-5)
+
+
+def _cuda_geometry(path):
+    """The tile constants a CUDA source states: its #defines and, in
+    swa_flash_bf16.cu, one `struct Geo<hd>` line per head width."""
+    import re
+    src = (Path(K.__file__).parent / "csrc" / path).read_text()
+    defines = {m[1]: int(m[2]) for m in
+               re.finditer(r"^#define (\w+) (\d+)\b", src, re.M)}
+    geo = {int(m[1]): {"fwd_cols": int(m[2]), "dq_cols": int(m[3]),
+                       "dkdv_rows": int(m[4])} for m in re.finditer(
+        r"struct Geo<(\d+)> \{ static constexpr int fwd_cols = (\d+), "
+        r"dq_cols = (\d+), dkdv_rows = (\d+); \};", src)}
+    bwd_ty = re.search(r"struct BwdTY \{ static constexpr int value = "
+                       r"HD == 256 \? (\d+) : (\d+); \};", src)
+    return defines, geo, bwd_ty
+
+
+def test_geometry_constants_match_the_cuda_sources():
+    """The tile geometry the replays (and the wrappers' docs) use is the
+    one the kernels are compiled with: swa_attention.py's constants
+    against the #defines and constexprs parsed from both sources."""
+    d, geo, _ = _cuda_geometry("swa_flash_bf16.cu")
+    assert (d["STAGES"], d["FWD_ROWS"], d["DQ_ROWS"], d["DKDV_COLS"]) == (
+        K.BF16_STAGES, K.BF16_FWD_ROWS, K.BF16_DQ_ROWS, K.BF16_DKDV_COLS)
+    assert geo == K.BF16_TILES
+    assert tuple(sorted(geo)) == K.HEAD_DIMS
+    # two consumer warpgroups of 64 rows each
+    assert d["THREADS"] == 384 and K.BF16_FWD_ROWS == K.BF16_DQ_ROWS == 128
+    d, _, bwd_ty = _cuda_geometry("swa_flash.cu")
+    assert d["COLS"] == K.FP32_COLS and 4 * d["FWD_TY"] == K.FP32_ROWS
+    assert {hd: 4 * int(bwd_ty[1] if hd == 256 else bwd_ty[2])
+            for hd in K.HEAD_DIMS} == K.FP32_BWD_ROWS
 
 
 # ---------------------------------------------------------------- wrappers
@@ -465,3 +584,27 @@ def test_autograd_function_plumbing_with_replayed_kernels(monkeypatch,
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
                                    atol=1e-5 * w.abs().max().item(),
                                    err_msg=name)
+
+
+def test_resource_report_reads_the_build_log(tmp_path, monkeypatch):
+    """`build.resource_report` (what chip_smoke.py prints of the bf16
+    kernels' registers and spills) keeps ptxas's entry, spill and
+    register lines of the library's build log, and gives [] before a
+    build has written one."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    (tmp_path / "k.cu").write_text("// a kernel\n")
+    assert build.resource_report("k") == []
+    log = build._target(tmp_path / "k.cu").with_suffix(".log")
+    log.parent.mkdir()
+    log.write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1fv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1fv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n")
+    assert build.resource_report("k") == [
+        "ptxas info    : Compiling entry function '_Z1fv' for 'sm_90a'",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers"]

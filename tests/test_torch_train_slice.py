@@ -11,11 +11,20 @@ with shards uploaded to the object store), and under `sync_disk` and
 RAM, a fresh `objstore` checkpointer of each package (no snapshot in its
 SMPs) restores a small numpy state from the `.reft` family of either
 package (tier `checkpoint`), then, with every `.reft` file deleted, from
-the object store (tier `objstore`), all byte-identical."""
+the object store (tier `objstore`), all byte-identical.
+
+A mid-flight software failure under `reft`, in both orders: the failed
+member's flight of the newest snapshot landed before the restore read
+(tier in-memory) or held in the air by a stopped SMP (tier raim5), and
+a round the failed member skipped (tier raim5); the restore records
+which, and every restore is byte-exact; `chip_smoke.py`'s rule that
+derives the expected tier from that record; and a session retrying a
+cadence persist that fired no round."""
 import glob
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -152,3 +161,129 @@ def test_ladder_below_ram_matches_reference(tmp_path):
     finally:
         for ck in readers.values():
             ck.close()
+
+
+@pytest.mark.parametrize("order", ["landed", "in-air", "partial"])
+def test_software_failure_tier_follows_the_failed_flight(order, tmp_path):
+    """Node 0's flight of the newest step lands before the software
+    failure ("landed"), or its SMP is stopped (SIGSTOP) so that the flight
+    is still in the air when the restore reads ("in-air"), or a step later
+    its busy slot skips a round the other members launch ("partial"): the
+    restore records each member's clean steps as the ladder read them and
+    its flights as its engine saw them, the tier follows, the backend
+    reports the partial round as launched, and the restored bytes are the
+    newest restorable step's."""
+    states = [convert.state_from_numpy(_numpy_state(i), "cpu")
+              for i in range(3)]
+    spec = CheckpointSpec(backend="reft", ckpt_dir=str(tmp_path), sg_size=4)
+    with create_checkpointer(spec, states[0]) as ck:
+        assert ck.snapshot(states[0], 2, extra_meta={"ds": 2}, wait=True)
+        assert ck.launched(2)
+        e0 = ck.group.engines[0]
+        pid = e0.smp.proc.pid
+        if order != "landed":
+            os.kill(pid, signal.SIGSTOP)
+        try:
+            assert ck.snapshot(states[1], 4, extra_meta={"ds": 4})
+            if order == "landed":
+                e0.wait()
+            if order == "partial":
+                for e in ck.group.engines[1:]:
+                    e.wait()
+                assert not ck.snapshot(states[2], 6, extra_meta={"ds": 6})
+                assert ck.launched(6) and not ck.launched(4)
+            ck.inject_failure(0, "software")
+            res = ck.restore()
+        finally:
+            if order != "landed":
+                os.kill(pid, signal.SIGCONT)
+        want = {"landed": (4, "in-memory", [2, 4], [2, 4]),
+                "in-air": (4, "raim5", [2], [2, 4]),
+                "partial": (6, "raim5", [2], [2, 4, 6])}[order]
+        step, tier, own, others = want
+        assert res.clean == {0: own, 1: others, 2: others, 3: others}
+        assert res.flights == {
+            0: {"landed": own, "in_air": [4] if order != "landed" else []},
+            **{m: {"landed": others, "in_air": []} for m in (1, 2, 3)}}
+        assert (res.tier, res.step, res.extra_meta) == \
+            (tier, step, {"ds": step})
+        assert np.array_equal(_flat(res.state, leaf_arrays),
+                              _flat(states[step // 2 - 1], leaf_arrays))
+
+
+def _rec(step, tier, clean, landed, in_air=None):
+    return {"tier": tier, "step": step, "bit_exact": True, "clean": clean,
+            "flights": {m: {"landed": landed[m],
+                            "in_air": (in_air or {}).get(m, [])}
+                        for m in landed}}
+
+
+def _rep(first):
+    second = _rec(9, "raim5", {0: [5, 7, 9], 2: [5, 7, 9], 3: [5, 7, 9]},
+                  {0: [5, 7, 9], 2: [5, 7, 9], 3: [5, 7, 9]})
+    return {"recoveries": [first, second]}
+
+
+ALL = {m: [1, 3] for m in range(4)}
+
+
+@pytest.mark.parametrize("first,want", [
+    (_rec(3, "in-memory", ALL, ALL), "in-memory"),
+    # node 0's flight of 3 in the air when the read began
+    (_rec(3, "raim5", {**ALL, 0: [1]}, {**ALL, 0: [1]}, {0: [3]}), "raim5"),
+    # it landed after the read began: either tier
+    (_rec(3, "in-memory", ALL, {**ALL, 0: [1]}, {0: [3]}), "in-memory"),
+    # a round only members 0 and 3 launched: step 1 is the newest
+    (_rec(1, "in-memory", {0: [1, 6], 1: [1], 2: [1], 3: [1, 6]},
+          {0: [1, 6], 1: [1], 2: [1], 3: [1, 6]}), "in-memory"),
+    # faults the rule must catch: a snapshot that node 0's engine saw land
+    # is missing from its SMP; a rollback past a step that landed on every
+    # member; a restore at another step than the newest held
+    (_rec(3, "raim5", {**ALL, 0: [1]}, ALL), "lands"),
+    (_rec(1, "in-memory", {m: [1] for m in range(4)},
+          {m: [1, 3] for m in range(4)}), "lands"),
+    (_rec(1, "in-memory", ALL, ALL), "restored step"),
+])
+def test_chip_smoke_first_tier_follows_the_record(first, want, monkeypatch):
+    """chip_smoke.py's phase-4 rule on a run's restore records: the tier
+    follows the engines' record of which flights landed before the read,
+    held against the SMPs' read; a lost snapshot, a rollback past a
+    landed step, or a restore without the record fails."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    if want in ("in-memory", "raim5"):
+        assert chip_smoke._want_tiers(_rep(first), "t") == \
+            [(want, True), ("raim5", True)]
+    else:
+        with pytest.raises(AssertionError, match=want if want != "lands"
+                           else "saw step 3 land"):
+            chip_smoke._want_tiers(_rep(first), "t")
+    bare = _rep(first)
+    del bare["recoveries"][0]["flights"]
+    with pytest.raises(AssertionError, match="no record"):
+        chip_smoke._want_tiers(bare, "t")
+
+
+@pytest.mark.parametrize("backend,fired", [("reft", [3, 4, 8]),
+                                           ("null", [3, 7]),
+                                           ("sync_disk", [3, 7])])
+def test_session_retries_a_persist_that_fired_nothing(backend, fired,
+                                                      tmp_path):
+    """Under REFT, a cadence persist that fires no round (no step clean on
+    every member yet) is tried again at the next step, and one that fires
+    starts the next cadence; backends whose persist cannot defer (null,
+    the disk baselines) keep the reference's cadence."""
+    from repro_torch.api import CheckpointSession
+    state = convert.state_from_numpy(_numpy_state(), "cpu")
+    spec = CheckpointSpec(backend=backend, ckpt_dir=str(tmp_path),
+                          sg_size=2, snapshot_every_steps=100,
+                          checkpoint_every_steps=4)
+    calls = []
+    with CheckpointSession(spec, state) as sess:
+        def persist(*args, **kwargs):
+            calls.append(step)
+            return None if len(calls) == 1 else step
+        sess.checkpointer.persist = persist
+        for step in range(1, 10):
+            sess.after_step(state, step)
+    assert calls == fired
