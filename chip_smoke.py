@@ -7,12 +7,16 @@ Phases, each printed as it ends; any failure exits non-zero:
      room in /dev/shm for the snapshot managers' buffers and room in the
      temp directory for the durable runs of phase 5;
   2. build every CUDA kernel from the sources (nvcc, sm_90a), timed, with
-     ptxas's registers and spills of swa_flash's bf16 kernels;
+     ptxas's registers and spills of swa_flash's bf16 kernels and of the
+     SSD kernels;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with CUDA-event times: encode_bucket
-     bit-exact; the SSD scan's forward and backward kernels against the
-     plain chunked scan and its autograd (fp32, TF32 off), once with a
-     zero and once with a random initial state; the sliding-window flash
+     bit-exact; the SSD scan's chunked forward and backward kernels
+     against the plain chunked scan and its autograd in fp32 and in fp64
+     (TF32 off), at mamba2-130m's shape with a zero and a random initial
+     state and at SSD_EDGE_CASES (Q 250, ragged P and N, N 16 and 256, Q
+     1), two launches bit-equal, timed beside the bound of the products
+     they do (bf16x3) and the serial kernels' fp32 bound; the sliding-window flash
      attention's forward and backward kernels (the fp32 route's CUDA-core
      kernels, the bf16 route's tensor-core kernels, whose backward time
      includes its D pre-pass) against the plain flash attention and its
@@ -221,6 +225,9 @@ def build_kernels():
     # spills of each, as ptxas reported them
     for line in build.resource_report("swa_flash_bf16"):
         print(f"swa_flash_bf16 ptxas: {line}")
+    # and of the SSD scan's chunked kernels
+    for line in build.resource_report("ssd_scan"):
+        print(f"ssd_scan ptxas: {line}")
 
 
 def _cuda_ms(torch, fn, reps=20, trials=7, hold_cycles=0):
@@ -322,12 +329,12 @@ def _ssd_shape():
             cfg.ssd_chunk)
 
 
-def _ssd_inputs(torch, gen, with_h0):
+def _ssd_inputs(torch, gen, shape, with_h0):
     """SSD inputs as ssm_block makes them, with Mamba2's initial ranges
     (A in [-16, -1], dt in [1e-3, 1e-1]; arXiv:2405.21060): a = dt A and
     u = x dt, dt log-uniform per head times lognormal noise per step; x,
     B, C, h0 and the cotangents standard normal."""
-    B, S, H, P, N, _ = _ssd_shape()
+    B, S, H, P, N, _ = shape
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
     un = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(  # noqa: E731
         *s, generator=gen, device="cuda")
@@ -339,66 +346,134 @@ def _ssd_inputs(torch, gen, with_h0):
             "dy": rn(B, S, H, P), "dhf": rn(B, H, P, N)}
 
 
+def ssd_flops(B, S, H, P, N, Q):
+    """(forward, backward) FLOP of the products the chunked kernels do,
+    one bf16 term each (the split does three): the causal products count
+    the Q (Q + 1) / 2 pairs of a chunk's lower triangle."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    state = nc * H * 2 * P * N * Q          # st, X, du_state, D, dC/dB heads
+    causal = nc * H * 2 * P * tri           # (S o L) u, dy u^T, (S o L)^T dy
+    cb = nc * 2 * N * tri                   # C B^T, dS B, dS^T C
+    return (B * (2 * state + causal + cb),
+            B * (5 * state + 2 * causal + 3 * cb))
+
+
+def ssd_bytes(B, S, H, P, N, Q):
+    """(forward, backward) bytes of the main path's call (no h0, no
+    dh_final): each input read once, each output written once, fp32; hs is
+    an output of the forward, an input of the backward."""
+    nc = S // Q
+    x, ah, bn, st, hs = (B * S * H * P, B * S * H, B * S * N, B * H * P * N,
+                         B * H * nc * P * N)
+    return 4 * (2 * x + ah + 2 * bn + st + hs), \
+        4 * (3 * x + 2 * ah + 4 * bn + hs + st)
+
+
+# the SSD contract's edge shapes: (label, B, S, H, P, N, chunk)
+SSD_EDGE_CASES = [("S 2000, Q 250", 1, 2000, 4, 64, 128, 256),
+                  ("ragged P, N; Q 12", 1, 60, 2, 24, 40, 12),
+                  ("N 16", 1, 512, 4, 64, 16, 256),
+                  ("N 256", 1, 512, 4, 64, 256, 256),
+                  ("S 257 prime, Q 1", 1, 257, 2, 64, 128, 256)]
+
+
+def _ssd_held(torch, K, label, x, Q, strict=True):
+    """The kernels against the plain scan and its autograd in fp32 and in
+    fp64: y and h_final allclose(atol 5e-4, rtol 1e-3)
+    (tests/test_kernels.py's), each gradient max |diff| <= 1e-3 max |ref|,
+    da finite. Each check's ratio to its bound (<= 1 holds; NaN counts as
+    inf). -> (worst forward |diff|, worst gradient |diff|) against fp32,
+    and the worst ratio; raises on a ratio above 1 when `strict`."""
+    names = ["u", "a", "Bm", "Cm"] + (["h0"] if x["h0"] is not None else [])
+    y, hf, hs = K.ssd_scan_fwd(x["u"], x["a"], x["Bm"], x["Cm"], x["h0"],
+                               chunk=Q)
+    grads = K.ssd_scan_bwd(x["dy"], x["dhf"], x["u"], x["a"], x["Bm"],
+                           x["Cm"], hs, chunk=Q)
+    torch.cuda.synchronize()
+    fin = lambda r: r if math.isfinite(r) else math.inf  # noqa: E731
+    err, worst = {"fwd": 0.0, "bwd": 0.0}, 0.0
+    failed = []
+    if not torch.isfinite(grads[1]).all():
+        worst = math.inf
+        failed.append("da is not finite")
+    for dt in (torch.float32, torch.float64):
+        tag = "fp32" if dt == torch.float32 else "fp64"
+        leaves = [x[k].to(dt).requires_grad_(True) for k in names]
+        h0 = leaves[4] if len(leaves) == 5 else None
+        yp, hfp = K.ssd_scan_plain(*leaves[:4], h0, chunk=Q)
+        gp = torch.autograd.grad((yp, hfp), leaves,
+                                 (x["dy"].to(dt), x["dhf"].to(dt)))
+        for got, want, what in ((y, yp.detach(), "y"),
+                                (hf, hfp.detach(), "h_final")):
+            got = got.to(dt)
+            d = fin((got - want).abs().max().item())
+            ratio = fin(((got - want).abs()
+                         / (5e-4 + 1e-3 * want.abs())).max().item())
+            if strict:
+                print(f"ssd_scan {label} {what} vs {tag} plain: max|diff| "
+                      f"{d:.3e} (max|ref| {want.abs().max().item():.3e}); "
+                      f"allclose (atol 5e-4, rtol 1e-3) ratio {ratio:.3e}")
+            if not ratio <= 1:
+                failed.append(f"{what} vs the {tag} plain scan")
+            worst = max(worst, ratio)
+            if tag == "fp32":
+                err["fwd"] = max(err["fwd"], d)
+        for name, got, want in zip(names, grads, gp):
+            d = fin((got.to(dt) - want).abs().max().item())
+            top = want.abs().max().item()
+            ratio = d / (1e-3 * top)
+            if strict:
+                print(f"ssd_scan_bwd {label} d{name} vs {tag} plain: "
+                      f"max|diff| {d:.3e} (max|ref| {top:.3e}, ratio to "
+                      f"1e-3 max|ref| {ratio:.3e})")
+            if not ratio <= 1:
+                failed.append(f"d{name} vs the {tag} plain scan")
+            worst = max(worst, ratio)
+            if tag == "fp32":
+                err["bwd"] = max(err["bwd"], d)
+        del leaves, yp, hfp, gp
+    if strict and failed:
+        raise AssertionError(f"ssd_scan {label}: " + "; ".join(failed))
+    return err, worst
+
+
 def check_ssd(torch):
     """The SSD forward and backward kernels against the plain chunked scan
-    and its autograd, at mamba2-130m's shapes. Forward: atol 5e-4, rtol
-    1e-3 (tests/test_kernels.py's); backward: max |diff| <= 1e-3 max |ref|
-    for each gradient. The fp64 plain scan is printed beside them as the
-    yardstick of both fp32 versions."""
+    and its autograd, fp32 and fp64 (`_ssd_held`), at mamba2-130m's shapes
+    (h0 zero and random) and at SSD_EDGE_CASES; two launches bit-equal;
+    then the main path's call timed beside its bound."""
     K = importlib.import_module("repro_torch.kernels.ssd_scan")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch.backends.cuda.matmul.allow_tf32 = "
           f"{torch.backends.cuda.matmul.allow_tf32}")
-    B, S, H, P, N, Q = _ssd_shape()
+    main = _ssd_shape()
+    B, S, H, P, N, Q = main
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {"fwd": 0.0, "bwd": 0.0}
     for case in ("h0 zero", "h0 random"):
-        x = _ssd_inputs(torch, gen, case == "h0 random")
-        names = ["u", "a", "Bm", "Cm"] + (["h0"] if x["h0"] is not None
-                                          else [])
-        y, hf, hs = K.ssd_scan_fwd(x["u"], x["a"], x["Bm"], x["Cm"],
-                                   x["h0"], chunk=Q)
-        grads = K.ssd_scan_bwd(x["dy"], x["dhf"], x["u"], x["a"], x["Bm"],
-                               x["Cm"], hs, chunk=Q)
-        torch.cuda.synchronize()
-        refs = {}
-        for dt in (torch.float32, torch.float64):
-            leaves = [x[k].to(dt).requires_grad_(True) for k in names]
-            h0 = leaves[4] if len(leaves) == 5 else None
-            yp, hfp = K.ssd_scan_plain(*leaves[:4], h0, chunk=Q)
-            gp = torch.autograd.grad((yp, hfp), leaves,
-                                     (x["dy"].to(dt), x["dhf"].to(dt)))
-            refs[dt] = (yp.detach(), hfp.detach(), gp)
-        yp, hfp, gp = refs[torch.float32]
-        y64, hf64, g64 = refs[torch.float64]
-        for got, want, w64, what in ((y, yp, y64, "y"),
-                                     (hf, hfp, hf64, "h_final")):
-            d = (got - want).abs().max().item()
-            ok = torch.allclose(got, want, atol=5e-4, rtol=1e-3)
-            print(f"ssd_scan {case} {what}: max|diff| {d:.3e} "
-                  f"(max|ref| {want.abs().max().item():.3e}); vs fp64: "
-                  f"kernel {(got - w64).abs().max().item():.3e}, plain "
-                  f"{(want - w64).abs().max().item():.3e}; allclose "
-                  f"(atol 5e-4, rtol 1e-3) {ok}")
-            if not ok:
-                raise AssertionError(f"ssd_scan {case} {what} disagrees")
-            err["fwd"] = max(err["fwd"], d)
-        for name, got, want, w64 in zip(names, grads, gp, g64):
-            d = (got - want).abs().max().item()
-            top = want.abs().max().item()
-            print(f"ssd_scan_bwd {case} d{name}: max|diff| {d:.3e} "
-                  f"(max|ref| {top:.3e}, ratio {d / top:.2e}); vs fp64: "
-                  f"kernel {(got - w64).abs().max().item():.3e}, plain "
-                  f"{(want - w64).abs().max().item():.3e}")
-            if not (math.isfinite(d) and d <= 1e-3 * top):
-                raise AssertionError(f"ssd_scan_bwd {case} d{name} "
-                                     f"disagrees")
-            err["bwd"] = max(err["bwd"], d)
-        del refs, yp, hfp, gp, y64, hf64, g64
+        x = _ssd_inputs(torch, gen, main, case == "h0 random")
+        e, _ = _ssd_held(torch, K, f"main {case}", x, Q)
+        err = {k: max(err[k], e[k]) for k in err}
+    # the same inputs, launched again: bit-equal (no atomics, fixed order)
+    outs = [K.ssd_scan_fwd(x["u"], x["a"], x["Bm"], x["Cm"], x["h0"],
+                           chunk=Q) for _ in range(2)]
+    grads = [K.ssd_scan_bwd(x["dy"], x["dhf"], x["u"], x["a"], x["Bm"],
+                            x["Cm"], o[2], chunk=Q) for o in outs]
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip((*outs[0], *grads[0]),
+                                                  (*outs[1], *grads[1]))):
+        raise AssertionError("ssd_scan: two launches on the same inputs "
+                             "differ")
+    print("ssd_scan: two launches of each kernel bit-equal (y, h_final, hs, "
+          "du, da, dBm, dCm, dh0)")
+    del outs, grads, x
+    for label, *shape in SSD_EDGE_CASES:
+        x = _ssd_inputs(torch, gen, shape, True)
+        _ssd_held(torch, K, label, x, K.chunk_len(shape[1], shape[5]))
 
     # timing at the main path's call: h0 None, h_final unused (dh_final
     # None), states saved for the backward
-    x = _ssd_inputs(torch, gen, False)
+    x = _ssd_inputs(torch, gen, main, False)
     u, a, Bm, Cm, dy = (x[k] for k in ("u", "a", "Bm", "Cm", "dy"))
     _, _, hs = K.ssd_scan_fwd(u, a, Bm, Cm, chunk=Q)
     fwd_ms = _cuda_ms(torch, lambda: K.ssd_scan_fwd(u, a, Bm, Cm, chunk=Q),
@@ -413,25 +488,31 @@ def check_ssd(torch):
     bwd_plain_ms = _host_ms(torch, lambda: torch.autograd.grad(
         yp, leaves, dy, retain_graph=True))
     elems = B * S * H * P * N
-    io_fwd = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * N
-                  + B * H * P * N)                 # u, a, Bm, Cm -> y, h_f
-    io_bwd = 4 * (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * N)
     rows = {}
-    for name, ms, plain_ms, flops, nbytes in (
-            ("ssd_scan", fwd_ms, fwd_plain_ms, 4 * elems, io_fwd),
-            ("ssd_scan_bwd", bwd_ms, bwd_plain_ms, 11 * elems, io_bwd)):
-        ops_ms = flops / FP32_FLOPS * 1e3
+    for name, ms, plain_ms, flops, nbytes, old_flops in zip(
+            ("ssd_scan", "ssd_scan_bwd"), (fwd_ms, bwd_ms),
+            (fwd_plain_ms, bwd_plain_ms), ssd_flops(B, S, H, P, N, Q),
+            ssd_bytes(B, S, H, P, N, Q), (4 * elems, 11 * elems)):
+        # bf16x3: three bf16 tensor-core terms for every product
+        ops_ms = 3 * flops / BF16_FLOPS * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
+        # the serial kernels' bound: the recurrence's fp32 FMAs
+        old_bound_ms = max(old_flops / FP32_FLOPS * 1e3, bytes_ms)
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": "operations" if ops_ms >= bytes_ms
                       else "bytes",
+                      "bound_route": "bf16x3 at 989.4 TFLOP/s",
+                      "old_bound_ms": old_bound_ms,
                       "max_abs_err": err["fwd" if name == "ssd_scan"
                                          else "bwd"]}
         print(f"{name}: ms={ms:.4f} plain_ms={plain_ms:.3f} "
-              f"bound_ms={bound_ms:.5f} ({flops / 1e9:.2f} GFLOP -> "
-              f"{ops_ms:.5f} ms, {nbytes / 1e6:.1f} MB -> {bytes_ms:.5f} ms;"
-              f" {ms / bound_ms:.1f}x bound)")
+              f"bound_ms={bound_ms:.5f} (bf16x3: 3 x {flops / 1e9:.3f} "
+              f"GFLOP at 989.4 TFLOP/s -> {ops_ms:.5f} ms, "
+              f"{nbytes / 1e6:.1f} MB -> {bytes_ms:.5f} ms; "
+              f"{ms / bound_ms:.1f}x bound); old fp32 bound "
+              f"{old_bound_ms:.5f} ms ({old_flops / 1e9:.2f} GFLOP at 67 "
+              f"TFLOP/s)")
     return rows
 
 
@@ -814,16 +895,17 @@ def main_path(torch, arch, seq, batch, layers, must_launch):
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the {arch} path")
     steps = rep["step_seconds"]
-    if "swa_flash" in must_launch:
-        # every layer, every step taken: forward and its remat recompute,
-        # then one backward
-        n_layers = _path_config(arch, layers).num_layers
-        want = {"swa_flash": 2 * n_layers * len(steps),
-                "swa_flash_bwd": n_layers * len(steps)}
-        got = {k: launches[k] for k in want}
-        if got != want:
-            raise AssertionError(f"{arch}: swa_flash launches {got}, want "
-                                 f"{want}")
+    for fwd in ("swa_flash", "ssd_scan"):
+        if fwd in must_launch:
+            # every layer, every step taken: forward and its remat
+            # recompute, then one backward
+            n_layers = _path_config(arch, layers).num_layers
+            want = {fwd: 2 * n_layers * len(steps),
+                    fwd + "_bwd": n_layers * len(steps)}
+            got = {k: launches[k] for k in want}
+            if got != want:
+                raise AssertionError(f"{arch}: {fwd} launches {got}, want "
+                                     f"{want}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     if not all(math.isfinite(x) for x in rep["losses"]):
         raise AssertionError(f"{arch}: loss is not finite")
@@ -839,6 +921,13 @@ def main_path(torch, arch, seq, batch, layers, must_launch):
           f"median step {statistics.median(steps):.4f} s, losses "
           f"{rep['losses'][0]:.4f} -> {rep['losses'][-1]:.4f}, step seconds "
           + json.dumps([round(x, 4) for x in steps]))
+    for beside in (False, True):
+        part = [t for t, f in zip(steps, rep["step_beside_flight"])
+                if f == beside]
+        print(f"{arch} path: {len(part)} steps "
+              f"{'beside a flight' if beside else 'with no flight in the air'}"
+              + (f": {min(part):.4f}-{max(part):.4f} s, median "
+                 f"{statistics.median(part):.4f} s" if part else ""))
     print(f"snapshots: {launched} snapshot steps launched, {flights} "
           f"member flights completed, avg flight "
           f"{st.get('engine_seconds', 0.0) / max(flights, 1):.4f} s, "

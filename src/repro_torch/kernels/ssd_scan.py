@@ -1,17 +1,27 @@
 """Mamba2 SSD scan: plain version, CUDA forward and backward kernels.
 
 Replaces the TPU kernel `repro/kernels/ssd_scan.py::ssd_scan` (Pallas
-`_ssd_kernel`) with a hand-written CUDA kernel for Hopper
-(`csrc/ssd_scan.cu`, built for sm_90a by `kernels.build`), and adds a
-second kernel for its gradient: the JAX package trains by letting XLA
+`_ssd_kernel`) with hand-written CUDA kernels for Hopper
+(`csrc/ssd_scan.cu`, built for sm_90a by `kernels.build`), and adds
+kernels for its gradient: the JAX package trains by letting XLA
 differentiate `models.ssm.ssd_chunked`, while here `SSDScan` (a
-`torch.autograd.Function`) pairs the two kernels.
+`torch.autograd.Function`) pairs the two wrappers.
 
 Contract (the reference's, `ssd_chunked`): u (B,S,H,P) fp32, a (B,S,H)
 fp32 log-decay <= 0, Bm/Cm (B,S,N) fp32, h0 (B,H,P,N) or None ->
 y (B,S,H,P), h_final (B,H,P,N), with the recurrence
 
     h_t = e^{a_t} h_{t-1} + u_t (x) b_t,    y_t[p] = sum_n h_t[p, n] c_t[n].
+
+The kernels compute it in its chunked (state-space-duality) form, the
+chunks in parallel and every product on the tensor cores: chunk states, a
+short state passing over the nc = S / Q chunks, and the chunk scan; the
+backward runs the same passes in reverse (the source's header note has
+the algebra). Each product is bf16 mma.sync with every fp32 operand split
+into bf16 hi + lo (hi*hi + hi*lo + lo*hi: about 2^-17 relative a term),
+which holds the fp32 contract. What bounds the kernels is their staging:
+each 64 x 64 operand tile is split and written to shared memory by one
+register pass, then multiplied; there is no pipeline yet.
 
 `ssd_scan` dispatches on the inputs' device: a CPU tensor runs
 `ssd_scan_plain` (gradients from torch autograd through it); a CUDA tensor
@@ -26,12 +36,10 @@ import torch
 DEFAULT_CHUNK = 256
 # Kernel geometry; each must equal the #define of the same name in
 # csrc/ssd_scan.cu.
-FWD_ROWS = 8       # state rows p per forward block (one warp each)
-FWD_T = 32         # steps of B, C, u, e^a staged in shared memory at once
-BWD_ROWS = 16      # state rows p per backward block (one warp each)
-BWD_SUB = 8        # steps the backward recomputes into registers at once
-BWD_RED = 4        # steps per cross-warp reduction of dB, dC, da
-MAX_N = 256        # state width: 8 columns per lane at most
+TILE = 64          # rows of an output tile and depth of a staged k-chunk
+THREADS = 128      # threads a block: 4 warps of 16 output rows each
+MAX_Q = 4096       # longest chunk: the backward keeps a chunk's dcum in
+                   # shared memory
 
 
 def chunk_len(S: int, chunk: int) -> int:
@@ -132,9 +140,9 @@ def _check_cuda(u) -> None:
 def _geometry(u, Bm, chunk: int):
     B, S, H, P = u.shape
     N = Bm.shape[-1]
-    if N > MAX_N:
-        raise ValueError(f"state width N={N} above the kernels' {MAX_N}")
     Q = chunk_len(S, chunk)
+    if Q > MAX_Q:
+        raise ValueError(f"chunk length Q={Q} above the kernels' {MAX_Q}")
     return B, S, H, P, N, Q, S // Q
 
 
@@ -150,33 +158,44 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 def ssd_scan_fwd(u, a, Bm, Cm, h0=None, *, chunk: int):
-    """Forward kernel. -> (y, h_final, hs): hs (B,H,nc,P,N) holds the
-    state before each chunk of Q steps, what the backward starts from."""
+    """Forward kernels. -> (y, h_final, hs): hs (B,H,nc,P,N) holds the
+    state before each chunk of Q steps, what the backward starts from.
+    Four kernels, in order: chunk states (written into hs), the state
+    passing (in place over hs), S = C B^T per chunk, the chunk scan.
+    Scratch: cum (B,S,H) and S (B,nc,Q,Q)."""
     _check(u, a, Bm, Cm, h0)
-    _check_cuda(u)
     B, S, H, P, N, Q, nc = _geometry(u, Bm, chunk)
+    _check_cuda(u)
+    dev = u.device
     y = torch.empty_like(u)
-    h_final = torch.empty((B, H, P, N), dtype=u.dtype, device=u.device)
-    hs = torch.empty((B, H, nc, P, N), dtype=u.dtype, device=u.device)
+    h_final = torch.empty((B, H, P, N), dtype=u.dtype, device=dev)
+    hs = torch.empty((B, H, nc, P, N), dtype=u.dtype, device=dev)
+    cum = torch.empty((B, S, H), dtype=u.dtype, device=dev)
+    Sm = torch.empty((B, nc, Q, Q), dtype=u.dtype, device=dev)
     rc = _lib().reft_ssd_fwd(
         u.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_final.data_ptr(), hs.data_ptr(),
-        B, S, H, P, N, Q, u.device.index or 0,
-        torch.cuda.current_stream(u.device).cuda_stream)
+        h_final.data_ptr(), hs.data_ptr(), cum.data_ptr(), Sm.data_ptr(),
+        B, S, H, P, N, Q, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "ssd_scan_fwd")
     ssd_scan_fwd.launches += 1
     return y, h_final, hs
 
 
-ssd_scan_fwd.launches = 0      # kernel launches (not plain-version calls)
+ssd_scan_fwd.launches = 0      # wrapper calls that launched the kernels
 
 
 def ssd_scan_bwd(dy, dh_final, u, a, Bm, Cm, hs, *, chunk: int):
-    """Backward kernel: the reverse recurrence from dh_final (None: zero)
-    over the states recomputed from `hs`. -> (du, da, dBm, dCm, dh0) in
-    the forward's layouts. dBm, dCm and da come from per-(b, h, p-tile)
-    partials summed here by one torch reduction each, in a fixed order."""
+    """Backward kernels from dh_final (None: zero) and the forward's `hs`.
+    -> (du, da, dBm, dCm, dh0) in the forward's layouts. Five kernels:
+    X = (e^cum dy)^T C per chunk (into gs), the reverse state passing (gs
+    becomes the cotangent of the state after each chunk, and dh0), S and
+    the head-summed dS per tile of each chunk with the per-head row and
+    column sums dw of dG o S o L, du and da per (chunk, head), dB and dC.
+    Scratch: cum (B,S,H), gs (B,H,nc,P,N), S and dS (B,nc,Q,Q), dw
+    (B,nc,H,nt,Q) with nt = ceil(Q / TILE); every sum over heads runs
+    inside one block, in order."""
     _check(u, a, Bm, Cm)
     B, S, H, P, N, Q, nc = _geometry(u, Bm, chunk)
     for name, t, shape in (("dy", dy, (B, S, H, P)),
@@ -194,38 +213,42 @@ def ssd_scan_bwd(dy, dh_final, u, a, Bm, Cm, hs, *, chunk: int):
         if t.device != u.device:
             raise ValueError(f"{name} is on {t.device}, u on {u.device}")
     _check_cuda(u)
-    n_pt = -(-P // BWD_ROWS)
-    n_sub = -(-Q // BWD_SUB)
+    nt = -(-Q // TILE)
     dev = u.device
+    f32 = dict(dtype=u.dtype, device=dev)
     du = torch.empty_like(u)
-    dh0 = torch.empty((B, H, P, N), dtype=u.dtype, device=dev)
-    da_part = torch.empty((B, n_pt, S, H), dtype=u.dtype, device=dev)
-    dB_part = torch.empty((B, H * n_pt, S, N), dtype=u.dtype, device=dev)
-    dC_part = torch.empty((B, H * n_pt, S, N), dtype=u.dtype, device=dev)
-    scratch = torch.empty((B * H * n_pt, n_sub, BWD_ROWS, N),
-                          dtype=u.dtype, device=dev)
+    da = torch.empty((B, S, H), **f32)
+    dBm = torch.empty((B, S, N), **f32)
+    dCm = torch.empty((B, S, N), **f32)
+    dh0 = torch.empty((B, H, P, N), **f32)
+    cum = torch.empty((B, S, H), **f32)
+    gs = torch.empty((B, H, nc, P, N), **f32)
+    Sm = torch.empty((B, nc, Q, Q), **f32)
+    dSm = torch.empty((B, nc, Q, Q), **f32)
+    dw = torch.empty((B, nc, H, nt, Q), **f32)
     rc = _lib().reft_ssd_bwd(
         dy.data_ptr(), None if dh_final is None else dh_final.data_ptr(),
         u.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        hs.data_ptr(), du.data_ptr(), da_part.data_ptr(),
-        dB_part.data_ptr(), dC_part.data_ptr(), dh0.data_ptr(),
-        scratch.data_ptr(), B, S, H, P, N, Q, dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+        hs.data_ptr(), du.data_ptr(), da.data_ptr(), dBm.data_ptr(),
+        dCm.data_ptr(), dh0.data_ptr(), cum.data_ptr(), gs.data_ptr(),
+        Sm.data_ptr(), dSm.data_ptr(), dw.data_ptr(), B, S, H, P, N, Q,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
-    return (du, da_part.sum(1), dB_part.sum(1), dC_part.sum(1), dh0)
+    return du, da, dBm, dCm, dh0
 
 
-ssd_scan_bwd.launches = 0      # kernel launches (not plain-version calls)
+ssd_scan_bwd.launches = 0      # wrapper calls that launched the kernels
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # u, a, Bm, Cm, h0, y, h_final, hs, B, S, H, P, N, Q, device, stream
-    "reft_ssd_fwd": ([_P] * 8 + [_I] * 7 + [_P], _I),
-    # dy, dh_final, u, a, Bm, Cm, hs, du, da_part, dB_part, dC_part, dh0,
-    # scratch, B, S, H, P, N, Q, device, stream
-    "reft_ssd_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
+    # u, a, Bm, Cm, h0, y, h_final, hs, cum, S, B, S, H, P, N, Q, device,
+    # stream
+    "reft_ssd_fwd": ([_P] * 10 + [_I] * 7 + [_P], _I),
+    # dy, dh_final, u, a, Bm, Cm, hs, du, da, dB, dC, dh0, cum, gs, S, dS,
+    # dw, B, S, H, P, N, Q, device, stream
+    "reft_ssd_bwd": ([_P] * 17 + [_I] * 7 + [_P], _I),
     "reft_ssd_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -165,9 +165,9 @@ def run(argv=None) -> dict:
                     else {})},
     )
 
-    report = {"losses": [], "step_seconds": [], "recoveries": [],
-              "snapshot_crcs": {}, "stats": {}, "engine_stats": [],
-              "disk_times": None}
+    report = {"losses": [], "step_seconds": [], "step_beside_flight": [],
+              "recoveries": [], "snapshot_crcs": {}, "stats": {},
+              "engine_stats": [], "disk_times": None}
     launches0 = launch_counts()
     saved_crc = report["snapshot_crcs"]
     t0 = time.time()
@@ -197,6 +197,10 @@ def run(argv=None) -> dict:
         if sess.restored is not None:
             state, step = restored(sess.restored, "resume")
         while step < args.steps:
+            group = getattr(sess.checkpointer, "group", None)
+            report["step_beside_flight"].append(
+                group is not None and any(e.in_flight()
+                                          for e in group.engines))
             t_step = time.perf_counter()
             batch = next(ds)
             state, metrics = step_fn(state, batch)

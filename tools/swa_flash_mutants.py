@@ -15,18 +15,17 @@ mutant.
 
     python3 tools/swa_flash_mutants.py      (an H100 and nvcc)
 """
-import ctypes
 import importlib
 import math
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+sys.path[:0] = [str(ROOT), str(ROOT / "src"), str(ROOT / "tools")]
 
 import chip_smoke  # noqa: E402
+import mutants  # noqa: E402
 
 SRC = ROOT / "src/repro_torch/kernels/csrc/swa_flash_bf16.cu"
 # (name, text in the source, its replacement)
@@ -49,39 +48,6 @@ MUTANTS = [
      "pack_bf16(kpos < 1024 ? dV[4 * i + 2 * half] : 0.f,"
      " kpos < 1024 ? dV[4 * i + 2 * half + 1] : 0.f)"),
 ]
-
-
-def build(out_dir: Path):
-    """nvcc every mutant in parallel. -> {name: .so path}."""
-    from repro_torch.kernels import build as B
-    text = SRC.read_text()
-    procs = {}
-    for i, (name, old, new) in enumerate(MUTANTS):
-        if text.count(old) != 1:
-            raise AssertionError(f"mutant {name!r}: {old!r} occurs "
-                                 f"{text.count(old)} times in {SRC.name}")
-        src = out_dir / f"mutant{i}.cu"
-        src.write_text(text.replace(old, new))
-        so = out_dir / f"libmutant{i}.so"
-        procs[name] = (so, subprocess.Popen(
-            [B._nvcc(), *B.NVCC_FLAGS, "-o", str(so), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, (so, p) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"mutant {name!r} failed to build:\n{log}")
-    return {name: so for name, (so, _) in procs.items()}
-
-
-def load(so):
-    """Route the bf16 wrappers to the library at `so`."""
-    from repro_torch.kernels import build as B
-    K = importlib.import_module("repro_torch.kernels.swa_attention")
-    lib = ctypes.CDLL(str(so))
-    for fn, (argtypes, restype) in K._BF16_SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    B._LIBS["swa_flash_bf16"] = lib
 
 
 def verdicts(torch, K, x, plain, window, causal):
@@ -140,8 +106,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         ok = True
         for name, so in [("(real library)", real),
-                         *build(Path(tmp)).items()]:
-            load(so)
+                         *mutants.build(SRC, MUTANTS, Path(tmp)).items()]:
+            mutants.load(so, "swa_flash_bf16", K._BF16_SIGNATURES)
             caught_earlier = caught_rows = False
             print(f"{name}:")
             for c, x, plain in inputs:
