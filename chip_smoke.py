@@ -7,11 +7,20 @@ Phases, each printed as it ends; any failure exits non-zero:
      room in /dev/shm for the snapshot managers' buffers and room in the
      temp directory for the durable runs of phase 5;
   2. build every CUDA kernel from the sources (nvcc, sm_90a), timed, with
-     ptxas's registers and spills of swa_flash's bf16 kernels and of the
-     SSD kernels;
+     ptxas's registers and spills of swa_flash's bf16 kernels, of the
+     SSD kernels and of encode_bucket's two instances;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, with CUDA-event times: encode_bucket
-     bit-exact; the SSD scan's chunked forward and backward kernels
+     bit-exact at ENCODE_CASES (and a tile wider than one cluster's
+     refused), and its fused entry (encode_ranges, the
+     leaf gather in the kernel) bit-exact against its plain version and
+     against gather_bytes + encode_bucket at buckets of opt-125m's real
+     FlatSpec (leaves filled with seeded random bytes; an own bucket 2
+     bytes into its leaf, the one spanning the most leaves, a kind-2
+     parity bucket with and without its CRC, the tail bucket), each
+     timed fused and as gather + kernel (the kernels line's encode_bucket
+     times are the fused own bucket's, the instance the paths run); the
+     SSD scan's chunked forward and backward kernels
      against the plain chunked scan and its autograd in fp32 and in fp64
      (TF32 off), at mamba2-130m's shape with a zero and a random initial
      state and at SSD_EDGE_CASES (Q 250, ragged P and N, N 16 and 256, Q
@@ -71,6 +80,7 @@ run outside a checkout of the repository (it needs `src/repro_torch`).
 The module body stays import-light: the snapshot managers start with
 `spawn` and re-import this file.
 """
+import bisect
 import importlib
 import json
 import math
@@ -225,9 +235,10 @@ def build_kernels():
     # spills of each, as ptxas reported them
     for line in build.resource_report("swa_flash_bf16"):
         print(f"swa_flash_bf16 ptxas: {line}")
-    # and of the SSD scan's chunked kernels
-    for line in build.resource_report("ssd_scan"):
-        print(f"ssd_scan ptxas: {line}")
+    # and of the SSD scan's chunked kernels, and of encode_bucket's
+    for name in ("ssd_scan", "encode_bucket"):
+        for line in build.resource_report(name):
+            print(f"{name} ptxas: {line}")
 
 
 def _cuda_ms(torch, fn, reps=20, trials=7, hold_cycles=0):
@@ -263,44 +274,156 @@ def _host_ms(torch, fn, trials=3):
     return statistics.median(times)
 
 
-def check_encode_bucket(torch):
-    """encode_bucket against encode_bucket_plain on the card."""
-    import numpy as np
+def _host_u32(t):
+    """A uint32 (or int32) tensor's values as host numpy uint32."""
+    import torch
+    return t.view(torch.int32).cpu().numpy().view("uint32")
 
+
+def _encode_case(torch, stage, label, launch, plain, nbytes, want_crc,
+                 also=()):
+    """Run one encode case: the kernel's (lanes, digests) against the
+    plain version's, bit for bit, and (when it CRCs) the folded digests
+    against zlib over the plain lanes. `also`: further launches that must
+    give the same lanes and digests. -> (max_abs_err, failure or None)."""
+    import numpy as np
+    out, crc = launch()
+    pout, pcrc = plain()
+    got = [(out, crc)] + [f() for f in also]
+    torch.cuda.synchronize()
+    want = _host_u32(pout), _host_u32(pcrc)
+    err = 0
+    for o, c in got:
+        lanes, digests = _host_u32(o), _host_u32(c)
+        if lanes.shape != want[0].shape or digests.shape != want[1].shape:
+            return None, f"{label}: shapes {lanes.shape} {digests.shape}"
+        err = max(err, int(np.max(np.abs(lanes.astype(np.int64)
+                                          - want[0].astype(np.int64)))),
+                  int(np.max(np.abs(digests.astype(np.int64)
+                                    - want[1].astype(np.int64)))))
+    if err:
+        return err, f"{label}: max_abs_err={err}"
+    if want_crc:
+        z = zlib.crc32(want[0].view(np.uint8)[:nbytes].tobytes())
+        folded = stage.bucket_crc(_host_u32(crc), nbytes)
+        if folded != z:
+            return err, f"{label}: crc {folded:#x} != zlib {z:#x}"
+    return err, None
+
+
+def fused_setup(torch):
+    """The fused gather's inputs: opt-125m's train state at full width on
+    the card (its real FlatSpec), each leaf in an allocation of its own
+    as on the path but between 64 random bytes on either side (a kernel
+    that reads past a slice shows), its bytes seeded random too; the path's
+    bucket schedules for the SG's members (REFT's default bucket size,
+    parity fused). -> (encoder, [(label, sources, nbytes, want_crc)]):
+    an own bucket that starts 2 bytes into its leaf, the own bucket
+    spanning the most leaves, a kind-2 parity bucket (without its CRC as
+    on the path, and with it as on the delta path) and the tail bucket
+    (the stream's last own bucket, zero pad past total_bytes)."""
+    from repro_torch.core import raim5
+    from repro_torch.core.pipeline import DeviceEncoder, build_schedule
+    from repro_torch.core.smp import NodeLayout
+    from repro_torch.core.snapshot import ReftConfig
+    from repro_torch.core.treebytes import (leaf_arrays, make_flat_spec,
+                                            tensor_u8)
+    from repro_torch.train.steps import init_train_state
+    state = init_train_state(_path_config(DURABLE_ARCH, None), 0,
+                             device="cuda")
+    spec = make_flat_spec(state)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    leaves = []
+    for x in leaf_arrays(state):
+        n = tensor_u8(x).numel()
+        buf = torch.randint(0, 256, (n + 128,), generator=gen,
+                            dtype=torch.uint8, device="cuda")
+        leaves.append(buf[64:64 + n].view(x.dtype).reshape(x.shape))
+    del state
+    enc = DeviceEncoder(spec, leaves)
+    lay = NodeLayout(SG, spec.total_bytes)
+    tasks = []
+    for node in range(SG):
+        own = [(i * lay.bs, *ref.byte_range(lay.bs, SG)) for i, ref in
+               enumerate(raim5.data_blocks_of_node(node, SG))]
+        stripe = [ref.byte_range(lay.bs, SG)
+                  for ref in raim5.parity_stripe_of_node(node, SG)]
+        tasks += build_schedule(spec, own, stripe, ReftConfig().bucket_bytes,
+                                fuse_parity=True)
+    own = [t for t in tasks if t.kind == 0]
+    parity = [t for t in tasks if t.kind == 2]
+
+    def n_slices(t):
+        return sum(len(enc.ranges(a, b))
+                   for a, b in (t.sources or ((t.lo, t.hi),)))
+
+    def off(t):
+        i = bisect.bisect_right(enc.offsets, t.lo) - 1
+        return (t.lo - spec.leaves[i].offset) % 4
+
+    two_off = next(t for t in own if off(t) == 2)
+    widest = max(own, key=n_slices)
+    kind2 = max(parity, key=n_slices)
+    tail = max(own, key=lambda t: t.hi)
+    cases = [(f"own bucket 2 bytes off ({n_slices(two_off)} slices)",
+              ((two_off.lo, two_off.hi),), False),
+             (f"own bucket, most leaves ({n_slices(widest)} slices)",
+              ((widest.lo, widest.hi),), False),
+             (f"kind-2 parity bucket ({n_slices(kind2)} slices)",
+              kind2.sources, False),
+             ("kind-2 parity bucket, CRC (delta path)", kind2.sources, True),
+             (f"tail bucket ({tail.hi - tail.lo} B, "
+              f"{max(0, tail.hi - spec.total_bytes)} B past the state)",
+              ((tail.lo, tail.hi),), False)]
+    out = []
+    for label, srcs, delta in cases:
+        nb = srcs[0][1] - srcs[0][0]
+        out.append((label, srcs, nb, len(srcs) == 1 or delta))
+    return enc, out
+
+
+def check_encode_bucket(torch, fused, strict=True, timed=True):
+    """encode_bucket against encode_bucket_plain on the card at
+    ENCODE_CASES, and the fused entry (encode_ranges) against its plain
+    version and the unfused route at `fused_setup`'s buckets; each
+    timed (device time) beside its byte bound, the fused ones also as
+    gather_bytes + encode_bucket, the route they replace. -> (rows,
+    fused rows, max_abs_err); with strict=False, the failures are
+    listed in the rows instead of raised."""
     from repro_torch.kernels import stage
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
-    max_err = 0
-    for label, k, nbytes, main_crc in ENCODE_CASES:
+    rows, frows, max_err = [], [], 0
+
+    def record(label, err, failure, table):
+        nonlocal max_err
+        if failure and strict:
+            raise AssertionError(f"encode_bucket {failure}")
+        max_err = max(max_err, err or 0)
+        table.append({"case": label, "ok": failure is None,
+                      "failure": failure})
+        return failure is None
+
+    for i, (label, k, nbytes, main_crc) in enumerate(ENCODE_CASES):
         n = -(-nbytes // stage.LANE_BYTES) * (stage.LANE_BYTES // 4)
+        gen = torch.Generator(device="cuda").manual_seed(i)
         raw = torch.randint(0, 256, (k, 4 * n), generator=gen,
                             dtype=torch.uint8, device="cuda")
         raw[:, nbytes:] = 0
         blocks = raw.view(torch.uint32)
-        out, crc = stage.encode_bucket(blocks, nbytes=nbytes)
-        pout, pcrc = stage.encode_bucket_plain(blocks, nbytes=nbytes)
-        torch.cuda.synchronize()
-        lanes = out.view(torch.int32).cpu().numpy().view(np.uint32)
-        plain = pout.view(torch.int32).cpu().numpy().view(np.uint32)
-        digests = crc.view(torch.int32).cpu().numpy().view(np.uint32)
-        pdigests = pcrc.view(torch.int32).cpu().numpy().view(np.uint32)
-        err = max(int(np.max(np.abs(lanes.astype(np.int64)
-                                    - plain.astype(np.int64)))),
-                  int(np.max(np.abs(digests.astype(np.int64)
-                                    - pdigests.astype(np.int64)))))
-        want = zlib.crc32(plain.view(np.uint8)[:nbytes].tobytes())
-        got = stage.bucket_crc(digests, nbytes)
-        if err or got != want:
-            raise AssertionError(f"encode_bucket {label}: max_abs_err={err} "
-                                 f"crc {got:#x} != zlib {want:#x}")
-        if not main_crc:           # the main path's parity call: no CRC
+        err, failure = _encode_case(
+            torch, stage, label,
+            lambda: stage.encode_bucket(blocks, nbytes=nbytes),
+            lambda: stage.encode_bucket_plain(blocks, nbytes=nbytes),
+            nbytes, True)
+        if not failure and not main_crc:   # the path's parity call: no CRC
             out2, crc2 = stage.encode_bucket(blocks, nbytes=nbytes,
                                              want_crc=False)
             torch.cuda.synchronize()
-            if not torch.equal(out2, out) or crc2.view(torch.int32).any():
-                raise AssertionError(f"encode_bucket {label}: want_crc=False "
-                                     f"disagrees")
-        max_err = max(max_err, err)
+            if not torch.equal(out2, stage.encode_bucket_plain(
+                    blocks, nbytes=nbytes)[0]) \
+                    or crc2.view(torch.int32).any():
+                failure = f"{label}: want_crc=False disagrees"
+        if not record(label, err, failure, rows) or not timed:
+            continue
         launch = lambda: stage.encode_bucket(             # noqa: E731
             blocks, nbytes=nbytes, want_crc=main_crc)
         ms = _cuda_ms(torch, launch, hold_cycles=HOLD_CYCLES)
@@ -309,15 +432,76 @@ def check_encode_bucket(torch):
             blocks, nbytes=nbytes, want_crc=main_crc))
         moved = (k + 1) * 4 * n
         bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        rows.append({"case": label, "k": k, "n_lanes": n, "nbytes": nbytes,
-                     "tiles": int(crc.numel()), "want_crc": main_crc,
-                     "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bytes": moved})
-        print(f"encode_bucket {label}: k={k} lanes={n} tiles={crc.numel()} "
-              f"crc={main_crc} ms={ms:.5f} call_ms={call_ms:.5f} "
+        tl = stage.resolve_tile_lanes(n) or n
+        rows[-1].update({"k": k, "n_lanes": n, "nbytes": nbytes,
+                         "tiles": -(-n // tl),
+                         "blocks": -(-n // tl) * stage.ENC_CLUSTER,
+                         "want_crc": main_crc, "ms": ms, "call_ms": call_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bytes": moved})
+        r = rows[-1]
+        print(f"encode_bucket {label}: k={k} lanes={n} tiles={r['tiles']} "
+              f"blocks={r['blocks']} crc={main_crc} ms={ms:.5f} "
+              f"call_ms={call_ms:.5f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={bound_ms:.5f} ({ms / bound_ms:.1f}x bound) "
+              f"bit-exact")
+
+    # on the card a tile is one cluster's: a wider one is refused
+    wide = torch.zeros((1, 2 * stage.MAX_CELL_LANES), dtype=torch.uint32,
+                       device="cuda")
+    try:
+        stage.encode_bucket(wide, nbytes=4, tile_lanes=wide.shape[1])
+        failure = "a tile wider than MAX_CELL_LANES was not refused"
+    except ValueError:
+        failure = None
+    record("wide tile refused", 0, failure, rows)
+
+    enc, cases = fused
+    for label, srcs, nbytes, want_crc in cases:
+        ranges = [enc.ranges(a, b) for a, b in srcs]
+
+        def gathered(srcs=srcs):
+            g = [enc.gather_bytes(a, b) for a, b in srcs]
+            return (g[0][None] if len(g) == 1
+                    else torch.stack(g)).view(torch.uint32)
+
+        def unfused(srcs=srcs, nbytes=nbytes, want_crc=want_crc):
+            return stage.encode_bucket(gathered(srcs), nbytes=nbytes,
+                                       want_crc=want_crc)
+
+        def fused_call(ranges=ranges, nbytes=nbytes, want_crc=want_crc):
+            return stage.encode_ranges(ranges, nbytes=nbytes,
+                                       want_crc=want_crc)
+
+        err, failure = _encode_case(
+            torch, stage, "fused " + label, fused_call,
+            lambda: stage.encode_ranges_plain(ranges, nbytes=nbytes,
+                                              want_crc=want_crc),
+            nbytes, want_crc, also=(unfused,))
+        if not record(label, err, failure, frows) or not timed:
+            continue
+        k = len(srcs)
+        n = -(-nbytes // stage.LANE_BYTES) * (stage.LANE_BYTES // 4)
+        moved = sum(min(b, enc.spec.total_bytes) - a
+                    for a, b in srcs) + 4 * n
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        ms = _cuda_ms(torch, fused_call, hold_cycles=HOLD_CYCLES)
+        unfused_ms = _cuda_ms(torch, unfused, hold_cycles=HOLD_CYCLES)
+        call_ms = _cuda_ms(torch, fused_call)
+        plain_ms = _host_ms(torch, lambda: stage.encode_ranges_plain(
+            ranges, nbytes=nbytes, want_crc=want_crc))
+        frows[-1].update({"k": k, "nbytes": nbytes, "n_lanes": n,
+                          "slices": sum(len(r) for r in ranges),
+                          "want_crc": want_crc, "ms": ms,
+                          "gather_plus_kernel_ms": unfused_ms,
+                          "call_ms": call_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bytes": moved})
+        print(f"encode_ranges {label}: k={k} nbytes={nbytes} slices="
+              f"{frows[-1]['slices']} crc={want_crc} ms={ms:.5f} "
+              f"gather+kernel ms={unfused_ms:.5f} call_ms={call_ms:.5f} "
               f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.5f} "
               f"({ms / bound_ms:.1f}x bound) bit-exact")
-    return rows, max_err
+    return rows, frows, max_err
 
 
 def _ssd_shape():
@@ -1287,7 +1471,10 @@ def main() -> int:
     phase("2 kernel build")
     build_kernels()
     phase("3 kernels against their plain versions")
-    rows, max_err = check_encode_bucket(torch)
+    fused = fused_setup(torch)
+    rows, frows, max_err = check_encode_bucket(torch, fused)
+    del fused
+    torch.cuda.empty_cache()
     ssd = check_ssd(torch)
     swa = check_swa(torch)
     xor = check_xor(torch)
@@ -1299,7 +1486,7 @@ def main() -> int:
     phase("5 durable tiers at full width")
     by_path[DURABLE] = durable_path(torch, medians[DURABLE_ARCH])
     phase("6 summary")
-    own = rows[0]
+    own = frows[0]    # the path's instance: the fused own bucket
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     # bf16 (the path's type): tensor-core kernels; fp32: CUDA-core ones
     swa_src = "src/repro_torch/kernels/csrc/swa_flash_bf16.cu"
@@ -1309,7 +1496,7 @@ def main() -> int:
                 "replaces": "src/repro/kernels/stage.py:159",
                 "max_abs_err": max_err, "ms": own["ms"],
                 "plain_ms": own["plain_ms"], "bound_ms": own["bound_ms"],
-                "bound_by": "bytes"},
+                "bound_by": "bytes", "cases": rows, "fused_cases": frows},
                {"name": "ssd_scan", "route": "cuda", "source": ssd_src,
                 "replaces": "src/repro/kernels/ssd_scan.py:60",
                 **ssd["ssd_scan"]},

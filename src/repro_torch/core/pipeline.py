@@ -13,10 +13,11 @@ hardware allows:
                     bucket schedule that drains optimizer-moment leaves
                     first, and cooperative yields at training step
                     boundaries (`StepBoundaryGate`).  With
-                    ``device_encode`` the pump instead gathers each
-                    bucket's leaf byte-ranges on the card and runs the
-                    fused CUDA encode kernel (XOR parity + CRC32,
-                    `repro_torch.kernels.stage`) *before* the d2h copy.
+                    ``device_encode`` the pump instead hands each
+                    bucket's leaf byte-ranges to the fused CUDA encode
+                    kernel (gather + XOR parity + CRC32,
+                    `repro_torch.kernels.stage.encode_ranges`), which
+                    reads them on the card *before* the d2h copy.
   L2 host stager    moves ready buckets into the SMP staging ring under
                     credit-based flow control: scratch-buffer credits
                     upstream (to L1), ring-slot semaphore credits
@@ -510,20 +511,19 @@ class LeafReader:
 
 # --------------------------------------------------------- device encoder
 class DeviceEncoder:
-    """Device-side bucket encode for one flight: gathers a `BucketTask`'s
-    scattered leaf byte-ranges into a contiguous uint32 lane buffer *on
-    the card* (uint8 views of the pinned leaves, sliced and concatenated
-    on the device), then runs the fused encode kernel
-    (`repro_torch.kernels.stage.encode_bucket`) — XOR parity fold for
-    kind-2 buckets, CRC32 for own-data buckets — and starts the d2h copy.
-    The host receives ready-to-publish bytes + digest; no per-leaf host
-    gather, no host XOR, no host zlib."""
+    """Device-side bucket encode for one flight: hands a `BucketTask`'s
+    scattered leaf byte-ranges (uint8 views of the pinned leaves) to the
+    fused encode kernel (`repro_torch.kernels.stage.encode_ranges`), which
+    reads them where they lie on the card — XOR parity fold for kind-2
+    buckets, CRC32 for own-data buckets — and starts the d2h copy.  The
+    host receives ready-to-publish bytes + digest; no gather copy, no
+    per-leaf host gather, no host XOR, no host zlib."""
 
     def __init__(self, spec: FlatSpec, leaves: List[Any]):
         from repro_torch.kernels.stage import (LANE_BYTES, bucket_crc,
-                                               encode_bucket)
+                                               encode_ranges)
         self._lane_bytes = LANE_BYTES
-        self._encode = encode_bucket
+        self._encode = encode_ranges
         self._bucket_crc = bucket_crc
         self.spec = spec
         self.leaves = leaves
@@ -536,32 +536,35 @@ class DeviceEncoder:
             got = self._u8cache[i] = tensor_u8(self.leaves[i].detach())
         return got
 
-    def gather_bytes(self, lo: int, hi: int) -> torch.Tensor:
-        """Bytes [lo, hi) of the flat stream as a uint8 tensor on the
-        leaves' device, zero-padded past `total_bytes` and up to whole
-        `LANE_BYTES` lanes."""
-        nb = hi - lo
-        parts = []
+    def ranges(self, lo: int, hi: int) -> List[Tuple[torch.Tensor, int,
+                                                      int]]:
+        """Bytes [lo, hi) of the flat stream as `(uint8 leaf view, start,
+        count)` slices in order; bytes past `total_bytes` have none."""
+        out = []
         i = bisect.bisect_right(self.offsets, lo) - 1
         pos = lo
         while pos < hi and i < len(self.spec.leaves):
             ls = self.spec.leaves[i]
             a, b = max(pos, ls.offset), min(hi, ls.offset + ls.nbytes)
             if b > a:
-                parts.append(self._u8(i)[a - ls.offset:b - ls.offset])
+                out.append((self._u8(i), a - ls.offset, b - a))
             pos = b
             i += 1
-        pad = (hi - pos) + ((-nb) % self._lane_bytes)
+        return out
+
+    def gather_bytes(self, lo: int, hi: int) -> torch.Tensor:
+        """Bytes [lo, hi) of the flat stream as a fresh uint8 tensor on the
+        leaves' device, zero-padded past `total_bytes` and up to whole
+        `LANE_BYTES` lanes (what `encode_ranges` reads in place)."""
+        parts = [t[a:a + n] for t, a, n in self.ranges(lo, hi)]
+        pad = (hi - lo - sum(p.numel() for p in parts)) \
+            + ((lo - hi) % self._lane_bytes)
         if pad:
             dev = parts[0].device if parts else self.leaves[0].device
             parts.append(torch.zeros(pad, dtype=torch.uint8, device=dev))
         # always a fresh buffer: a bare leaf slice may start at any byte,
         # and the lane view and the kernel need aligned storage
         return parts[0].clone() if len(parts) == 1 else torch.cat(parts)
-
-    def gather_lanes(self, lo: int, hi: int) -> torch.Tensor:
-        """Bytes [lo, hi) as (n_lanes,) uint32 lanes on the device."""
-        return self.gather_bytes(lo, hi).view(torch.uint32)
 
     def encode(self, task: BucketTask, *, want_crc: Optional[bool] = None,
                prewarm_payload: bool = True):
@@ -575,15 +578,17 @@ class DeviceEncoder:
         bucket."""
         nb = task.hi - task.lo
         if task.kind == 2:
-            rows = torch.stack([self.gather_bytes(lo, hi)
-                                for lo, hi in task.sources])
+            sources = task.sources
             if want_crc is None:
                 want_crc = False             # parity carries no checksum
         else:
-            rows = self.gather_bytes(task.lo, task.hi)[None]
+            sources = ((task.lo, task.hi),)
             want_crc = True
-        lanes, crc = self._encode(rows.view(torch.uint32), nbytes=nb,
-                                  want_crc=want_crc)
+        # a RAIM5 block may end in the pad past total_bytes: a row there
+        # has no slice and encodes as zeros
+        lanes, crc = self._encode([self.ranges(lo, hi) for lo, hi in sources],
+                                  nbytes=nb, want_crc=want_crc,
+                                  device=self.leaves[0].device)
         crc = HostCopy(crc)
         if prewarm_payload:
             lanes = HostCopy(lanes)

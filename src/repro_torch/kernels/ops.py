@@ -47,7 +47,9 @@ def encode_bucket(blocks, *, nbytes: int, want_crc: bool = True,
     """Fused snapshot-bucket encode (XOR parity fold + CRC32) on the card
     — see `repro_torch.kernels.stage`.  blocks: (k, n_lanes) uint32.
     Buckets beyond `stage.MAX_CELL_LANES` tile and return per-tile digests
-    (fold with `stage.bucket_crc`)."""
+    (fold with `stage.bucket_crc`).  On the card a tile spans at most
+    `stage.MAX_CELL_LANES` lanes: a wider `tile_lanes` raises ValueError
+    there (the CPU route takes any)."""
     return _encode_bucket_kernel(blocks, nbytes=nbytes, want_crc=want_crc,
                                  tile_lanes=tile_lanes)
 

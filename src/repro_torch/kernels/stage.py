@@ -3,13 +3,10 @@
 Replaces the TPU kernel `repro/kernels/stage.py::encode_bucket` (Pallas
 `_encode_kernel` / `_encode_tiled_kernel`) with a hand-written CUDA kernel
 for Hopper (`csrc/encode_bucket.cu`, built for sm_90a by `kernels.build`).
+The kernel
 
-The L1 pump gathers a bucket's scattered leaf byte-ranges into one
-contiguous (k, n_lanes) uint32 buffer on the card
-(`repro_torch.core.pipeline.DeviceEncoder`); this kernel then
-
-  * XOR-folds the k stacked rows (k == 1 for own-data buckets, a copy;
-    k == SG-1 for a fused parity bucket), and
+  * XOR-folds k rows of uint32 lanes (k == 1 for own-data buckets, a
+    copy; k == SG-1 for a fused parity bucket), and
   * computes one zlib-compatible CRC32 per `TILE_LANES` tile of the
     folded row (a single digest for buckets of at most `MAX_CELL_LANES`),
 
@@ -17,9 +14,14 @@ so the host receives ready-to-publish bytes plus digests in one d2h copy.
 The (T,) digest contract is the JAX package's, so `bucket_crc` folds them
 identically and the port's digests equal the reference's.
 
-On a CPU tensor the wrapper runs `encode_bucket_plain` (a torch XOR fold
-and `zlib.crc32` per tile); on a CUDA tensor it launches the kernel or
-raises.
+Two entries launch it: `encode_bucket` takes the rows as one contiguous
+(k, n_lanes) array; `encode_ranges` takes each row as the leaf byte slices
+that make it up and reads them where they lie, so the L1 pump
+(`repro_torch.core.pipeline.DeviceEncoder`) gathers nothing itself.
+
+On CPU tensors the wrappers run their plain versions (a torch XOR fold
+and `zlib.crc32` per tile; `encode_ranges_plain` concatenates the slices
+first); on a CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -30,16 +32,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.crcutil import _zero_operator, crc32_concat
+from repro_torch.core.crcutil import (CRC_TABLES, _zero_operator,
+                                      crc32_concat)
 
 LANE_BYTES = 512              # pad buckets to 128 uint32 lanes x 4 bytes
 MAX_CELL_LANES = 1 << 16      # 256 KiB: biggest single-digest bucket
 TILE_LANES = 1 << 15          # 128 KiB tiles beyond that
-
-# threads per block of the CUDA kernel: each CRCs one segment of its tile
-# (must equal ENC_THREADS in csrc/encode_bucket.cu)
-ENC_THREADS = 512
-_LEVELS = ENC_THREADS.bit_length() - 1     # tree-combine levels (log2)
 
 
 def resolve_tile_lanes(n_lanes: int,
@@ -97,20 +95,160 @@ def encode_bucket_plain(blocks: torch.Tensor, *, nbytes: int,
 
 
 # ------------------------------------------------------------------ kernel
-_OPS = {}          # (seg_words, device) -> device tensor of zero operators
+# The CUDA kernel's shape (each must equal its #define in
+# csrc/encode_bucket.cu): a tile is one cluster of ENC_CLUSTER blocks of
+# ENC_THREADS threads; thread j of a block CRCs one segment of `sw` words
+# (a power of two), so a block covers ENC_THREADS * sw lanes of its tile.
+ENC_THREADS = 256
+ENC_WARPS = ENC_THREADS // 32
+ENC_CLUSTER = 8
+MAX_SLICES = 128      # leaf slices an `encode_ranges` launch takes
+MAX_ROWS = 16         # rows (k) an `encode_ranges` launch takes
 
 
-def _zero_ops(seg_words: int, device: torch.device) -> torch.Tensor:
-    """(LEVELS, 32) uint32 GF(2) operators: level l advances a CRC
-    register past 4 * seg_words * 2**l zero bytes (the length of the right
-    subtree the kernel's tree-combine folds in at that level)."""
-    key = (seg_words, device)
-    got = _OPS.get(key)
+def seg_log2(tile_lanes: int) -> int:
+    """log2 of the words a thread CRCs: the smallest power of two that
+    spreads a `tile_lanes` tile over ENC_CLUSTER * ENC_THREADS threads."""
+    sw = -(-tile_lanes // (ENC_CLUSTER * ENC_THREADS))
+    return (sw - 1).bit_length()
+
+
+ZLEVELS = 11          # combine levels: a warp's 5, a block's 3, a tile's 3
+
+
+def nibble_table(op) -> np.ndarray:
+    """A GF(2) operator (32 columns, `_zero_operator`'s layout) as the
+    kernel applies it: 8 x 16 uint32, entry [k][x] = op applied to
+    x << 4k."""
+    out = np.zeros((8, 16), np.uint32)
+    for k in range(8):
+        for x in range(16):
+            v = 0
+            for i in range(4):
+                if (x >> i) & 1:
+                    v ^= int(op[4 * k + i])
+            out[k, x] = v
+    return out
+
+
+def table_words(lsw: int) -> np.ndarray:
+    """The kernel's constant table for segments of sw = 2**lsw words,
+    uint32: the slice-by-4 CRC table (4 x 256), then ZLEVELS operators
+    Z(4*sw*2**l) as nibble tables: level l < 5 folds 2**l segments into
+    their left neighbours within a warp, levels 5-7 a block's warps,
+    levels 8-10 (Z(4*bw*2**m), bw = ENC_THREADS * sw) a tile's blocks."""
+    sw = 1 << lsw
+    ops = [nibble_table(_zero_operator(4 * sw << l)) for l in range(ZLEVELS)]
+    return np.concatenate([CRC_TABLES.reshape(-1)]
+                          + [t.reshape(-1) for t in ops])
+
+
+def last_piece_bytes(nb: int, lsw: int) -> int:
+    """How many of a tile's `nb` live bytes its last block with any holds
+    (its whole words and, in the block of the tail word, the 1-3 tail
+    bytes): the kernel moves the blocks before it past them."""
+    nw, rem = divmod(nb, 4)
+    bw = ENC_THREADS << lsw
+    e = (nw - 1) // bw if nw and not rem else nw // bw
+    return 4 * (nw - e * bw) + rem
+
+
+def piece_ops(nbytes: int, tile_lanes: int, lsw: int):
+    """(t_last, op_full, op_last): the last tile with live bytes, and the
+    operator Z(last_piece_bytes) the kernel's block 0 applies in a full
+    tile and in tile t_last (32 columns each; both depend on nbytes, so
+    they travel in the launch's parameters)."""
+    t_last = (nbytes - 1) // (4 * tile_lanes)
+    return (t_last,
+            _zero_operator(last_piece_bytes(4 * tile_lanes, lsw)),
+            _zero_operator(last_piece_bytes(
+                nbytes - 4 * tile_lanes * t_last, lsw)))
+
+
+_TABLES = {}       # (lsw, device) -> device tensor of table_words(lsw)
+
+
+def _tables(lsw: int, device: torch.device) -> torch.Tensor:
+    key = (lsw, device)
+    got = _TABLES.get(key)
     if got is None:
-        cols = [_zero_operator(4 * seg_words << lvl) for lvl in range(_LEVELS)]
-        host = torch.from_numpy(np.asarray(cols, np.uint32)).view(torch.int32)
-        got = _OPS[key] = host.to(device)
+        host = torch.from_numpy(table_words(lsw).view(np.int32))
+        got = host.to(device)
+        # launches on other streams read it too: the copy lands first
+        torch.cuda.current_stream(device).synchronize()
+        _TABLES[key] = got
     return got
+
+
+class _Slice(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p), ("lo", ctypes.c_longlong)]
+
+
+class _Args(ctypes.Structure):
+    """`EncodeArgs` of csrc/encode_bucket.cu, field for field."""
+    _fields_ = [("blocks", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("crc", ctypes.c_void_p), ("tables", ctypes.c_void_p),
+                ("n_lanes", ctypes.c_longlong), ("nbytes", ctypes.c_longlong),
+                ("row_end", ctypes.c_longlong * MAX_ROWS),
+                ("slices", _Slice * MAX_SLICES),
+                ("k", ctypes.c_int), ("tile_lanes", ctypes.c_int),
+                ("lsw", ctypes.c_int), ("want_crc", ctypes.c_int),
+                ("t_last", ctypes.c_int), ("n_slices", ctypes.c_int),
+                ("row_first", ctypes.c_int * (MAX_ROWS + 1)),
+                ("op_full", ctypes.c_uint32 * 32),
+                ("op_last", ctypes.c_uint32 * 32)]
+
+
+_SIGNATURES = {
+    "reft_encode_args_size": ([], ctypes.c_int),
+    # args, gather, n_tiles, device, stream
+    "reft_encode_bucket": ([ctypes.POINTER(_Args), ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                           ctypes.c_int),
+    "reft_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def kernel_tiling(n_lanes: int, tile_lanes: Optional[int] = None) -> int:
+    """The tile width in lanes the kernel runs for an `n_lanes`-lane
+    bucket (`resolve_tile_lanes`, a single digest as one tile), or raise
+    for one it does not take: a tile is one cluster's shared memory, so
+    at most MAX_CELL_LANES lanes, in 16-byte vectors."""
+    tl = resolve_tile_lanes(n_lanes, tile_lanes) or n_lanes
+    if tl % 4 or tl > MAX_CELL_LANES:
+        raise ValueError(f"tile_lanes={tl}: the kernel takes a multiple of "
+                         f"4 lanes (16-byte vectors) up to {MAX_CELL_LANES}")
+    return tl
+
+
+def _launch(args: _Args, *, gather: bool, k: int, n: int, nbytes: int,
+            want_crc: bool, tile_lanes: Optional[int], device, dtype):
+    """Fill the shape fields of `args`, allocate the outputs, launch."""
+    tl = kernel_tiling(n, tile_lanes)
+    nt = -(-n // tl)
+    lsw = seg_log2(tl)
+    out = torch.empty(n, dtype=dtype, device=device)
+    crc = torch.empty(nt, dtype=dtype, device=device)
+    args.out, args.crc = out.data_ptr(), crc.data_ptr()
+    args.tables = _tables(lsw, device).data_ptr()
+    args.n_lanes, args.nbytes, args.k = n, nbytes, k
+    args.tile_lanes, args.lsw, args.want_crc = tl, lsw, int(want_crc)
+    if want_crc:
+        args.t_last, args.op_full[:], args.op_last[:] = piece_ops(nbytes, tl,
+                                                                  lsw)
+    from repro_torch.kernels.build import library
+    lib = library("encode_bucket", _SIGNATURES)
+    if lib.reft_encode_args_size() != ctypes.sizeof(_Args):
+        raise RuntimeError("encode_bucket: the kernel's EncodeArgs and "
+                           "stage._Args differ")
+    rc = lib.reft_encode_bucket(ctypes.byref(args), int(gather), nt,
+                                device.index or 0,
+                                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"encode_bucket launch failed: "
+                           f"{lib.reft_cuda_error_string(rc).decode()}")
+    encode_bucket.launches += 1
+    return out, crc
 
 
 def encode_bucket(blocks: torch.Tensor, *, nbytes: int,
@@ -122,8 +260,10 @@ def encode_bucket(blocks: torch.Tensor, *, nbytes: int,
     `bucket_crc`).  Parity callers pass want_crc=False (digests are 0).
 
     CUDA tensors launch `csrc/encode_bucket.cu` on the current stream
-    (bound: (k+1) * 4 * n_lanes bytes at 3.35 TB/s on an H100 SXM); CPU
-    tensors run `encode_bucket_plain`."""
+    (bound: (k+1) * 4 * n_lanes bytes at 3.35 TB/s on an H100 SXM); there
+    a tile (or a single digest) spans at most MAX_CELL_LANES lanes, and a
+    wider `tile_lanes` raises (`kernel_tiling`).  CPU tensors run
+    `encode_bucket_plain`, which takes any tiling."""
     _check_blocks(blocks, nbytes)
     if blocks.device.type == "cpu":
         return encode_bucket_plain(blocks, nbytes=nbytes, want_crc=want_crc,
@@ -134,40 +274,113 @@ def encode_bucket(blocks: torch.Tensor, *, nbytes: int,
     if blocks.data_ptr() % 16:
         raise ValueError("blocks must be 16-byte aligned")
     k, n = blocks.shape
-    tl = resolve_tile_lanes(n, tile_lanes) or n
-    if tl % 4:
-        raise ValueError(f"tile_lanes={tl} must be a multiple of 4 (the "
-                         f"kernel moves 16-byte vectors)")
-    nt = -(-n // tl)
-    seg_words = -(-tl // ENC_THREADS)
-    out = torch.empty(n, dtype=blocks.dtype, device=blocks.device)
-    crc = torch.empty(nt, dtype=blocks.dtype, device=blocks.device)
-    ops = _zero_ops(seg_words, blocks.device)
-    from repro_torch.kernels.build import library
-    lib = library("encode_bucket", _SIGNATURES)
-    rc = lib.reft_encode_bucket(
-        blocks.data_ptr(), k, n, out.data_ptr(), crc.data_ptr(), nbytes,
-        tl, nt, int(want_crc), ops.data_ptr(), seg_words,
-        blocks.device.index or 0, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"encode_bucket launch failed: "
-                           f"{lib.reft_cuda_error_string(rc).decode()}")
-    encode_bucket.launches += 1
-    return out, crc
+    args = _Args()
+    args.blocks = blocks.data_ptr()
+    return _launch(args, gather=False, k=k, n=n, nbytes=nbytes,
+                   want_crc=want_crc, tile_lanes=tile_lanes,
+                   device=blocks.device, dtype=blocks.dtype)
 
 
-encode_bucket.launches = 0     # kernel launches (not plain-version calls)
+encode_bucket.launches = 0     # kernel launches of both entries
 
-_SIGNATURES = {
-    # blocks, k, n_lanes, out, crc, nbytes, tile_lanes, n_tiles, want_crc,
-    # zero_ops, seg_words, device, stream
-    "reft_encode_bucket": ([
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p], ctypes.c_int),
-    "reft_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
+
+# ------------------------------------------------------- the fused gather
+def _check_rows(rows, nbytes: int, device=None):
+    """-> (k, n_lanes, device) of `encode_ranges`' rows, or raise; the
+    slices' device, which `device` (if given) must be."""
+    if not 1 <= len(rows) <= MAX_ROWS:
+        raise ValueError(f"encode_ranges takes 1 to {MAX_ROWS} rows, got "
+                         f"{len(rows)}")
+    n = -(-nbytes // LANE_BYTES) * (LANE_BYTES // 4)
+    if nbytes <= 0:
+        raise ValueError(f"nbytes={nbytes} must be positive")
+    device = None if device is None else torch.device(device)
+    n_slices = 0
+    for row in rows:
+        covered = 0
+        for t, start, count in row:
+            if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8 \
+                    or t.dim() != 1 or not t.is_contiguous():
+                raise TypeError("encode_ranges slices must be 1-D "
+                                "contiguous uint8 tensors")
+            if device is None or (device.index is None
+                                  and t.device.type == device.type):
+                device = t.device
+            elif t.device != device:
+                raise ValueError(f"encode_ranges slices on {device} and "
+                                 f"{t.device}")
+            if start < 0 or count < 0 or start + count > t.numel():
+                raise ValueError(f"slice [{start}, {start + count}) outside "
+                                 f"a tensor of {t.numel()} bytes")
+            covered += count
+            n_slices += count > 0
+        if covered > 4 * n:
+            raise ValueError(f"a row's slices hold {covered} bytes, more "
+                             f"than the bucket's {4 * n}")
+    if device is None:
+        raise ValueError("encode_ranges needs a slice or a device")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"encode_ranges runs on cuda or cpu tensors, not "
+                         f"{device}")
+    if n_slices > MAX_SLICES:
+        raise ValueError(f"{n_slices} slices: the kernel takes at most "
+                         f"{MAX_SLICES} a launch")
+    return len(rows), n, device
+
+
+def encode_ranges_plain(rows, *, nbytes: int, want_crc: bool = True,
+                        device=None):
+    """Plain version (any device): each row's slices and its zero pad
+    concatenated with `torch.cat`, the rows stacked, then
+    `encode_bucket_plain`."""
+    k, n, device = _check_rows(rows, nbytes, device)
+    stacked = []
+    for row in rows:
+        parts = [t[start:start + count] for t, start, count in row]
+        pad = 4 * n - sum(count for _, _, count in row)
+        parts.append(torch.zeros(pad, dtype=torch.uint8, device=device))
+        stacked.append(torch.cat(parts))
+    blocks = torch.stack(stacked).view(torch.uint32)
+    return encode_bucket_plain(blocks, nbytes=nbytes, want_crc=want_crc)
+
+
+def encode_ranges(rows, *, nbytes: int, want_crc: bool = True,
+                  device=None):
+    """`encode_bucket` with the gather fused in.  rows: k sequences of
+    `(uint8 tensor, start, count)` slices; row r is its slices' bytes
+    back to back, then zeros up to n_lanes = ceil(nbytes / LANE_BYTES) *
+    128 lanes (a row may have no slice: all zeros).  Returns what
+    `encode_bucket(stack(rows), nbytes=nbytes, ...)` returns (uint32),
+    byte for byte, digests included.  `device` is the slices' device,
+    needed only when no row has a slice.
+
+    CUDA tensors launch the kernel, which reads the slices where they lie
+    (any byte alignment) on the current stream: at most MAX_SLICES slices
+    and MAX_ROWS rows a launch, passed in its parameters (no copy to the
+    card).  CPU tensors run `encode_ranges_plain`."""
+    k, n, device = _check_rows(rows, nbytes, device)
+    if device.type == "cpu":
+        return encode_ranges_plain(rows, nbytes=nbytes, want_crc=want_crc,
+                                   device=device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    args = _Args()
+    s = 0
+    for r, row in enumerate(rows):
+        args.row_first[r] = s
+        lo = 0
+        for t, start, count in row:
+            if count:
+                args.slices[s].src = t.data_ptr() + start
+                args.slices[s].lo = lo
+                lo += count
+                s += 1
+        args.row_end[r] = lo
+    args.row_first[k] = s
+    args.n_slices = s
+    return _launch(args, gather=True, k=k, n=n, nbytes=nbytes,
+                   want_crc=want_crc, tile_lanes=None, device=device,
+                   dtype=torch.uint32)
 
 
 def bucket_crc(crc, nbytes: int, tile_lanes: Optional[int] = None) -> int:

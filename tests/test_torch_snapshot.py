@@ -12,10 +12,14 @@ state bytes:
     restores the other's — from disk and from shared memory, with one
     member lost and RAIM5-decoded;
   * a snapshot launched at step t and drained after more train steps
-    publishes step t's bytes (the port's train step is out of place).
+    publishes step t's bytes (the port's train step is out of place);
+  * the device encoder, over every bucket of the SG members' fused
+    schedules, gives what gathering the bucket's bytes and encoding them
+    gives, digests equal to zlib's.
 """
 import os
 import pickle
+import zlib
 
 import numpy as np
 import pytest
@@ -32,14 +36,17 @@ from repro.core.treebytes import make_flat_spec as jax_spec
 from repro.core.treebytes import tree_to_buffer as jax_to_buffer
 from repro_torch import convert
 from repro_torch.configs import get_config
+from repro_torch.core import raim5
 from repro_torch.core.coordinator import ReftGroup
 from repro_torch.core.loader import LoadStats
+from repro_torch.core.pipeline import DeviceEncoder, build_schedule
 from repro_torch.core.recovery import restore_from_checkpoint, restore_state
-from repro_torch.core.smp import ReadOnlyNode
+from repro_torch.core.smp import NodeLayout, ReadOnlyNode
 from repro_torch.core.snapshot import ReftConfig, SnapshotEngine
 from repro_torch.core.treebytes import (host_bytes, leaf_arrays,
                                         make_flat_spec, tree_to_buffer)
 from repro_torch.data.pipeline import SyntheticDataset
+from repro_torch.kernels import stage
 from repro_torch.configs.base import InputShape
 from repro_torch.train.steps import init_train_state, make_train_step
 
@@ -187,3 +194,56 @@ def test_snapshot_in_flight_keeps_step_t_while_training(tmp_path):
     assert got == want
     newest = b"".join(host_bytes(x).tobytes() for x in leaf_arrays(state))
     assert newest != want
+
+
+def _encode_every_bucket(state, bucket_bytes):
+    """Every bucket of the SG members' fused schedules through the device
+    encoder, against its gathered bytes and zlib. -> (kinds, tasks with
+    no byte of the state)."""
+    spec = make_flat_spec(state)
+    enc = DeviceEncoder(spec, leaf_arrays(state))
+    lay = NodeLayout(N, spec.total_bytes)
+    kinds, in_pad = set(), 0
+    for node in range(N):
+        own = [(i * lay.bs, *ref.byte_range(lay.bs, N)) for i, ref in
+               enumerate(raim5.data_blocks_of_node(node, N))]
+        stripe = [ref.byte_range(lay.bs, N)
+                  for ref in raim5.parity_stripe_of_node(node, N)]
+        for task in build_schedule(spec, own, stripe, bucket_bytes,
+                                   fuse_parity=True):
+            srcs = task.sources or ((task.lo, task.hi),)
+            for want in (None, True):
+                lanes, crc, nb = enc.encode(task, want_crc=want)
+                rows = np.stack([enc.gather_bytes(a, b).numpy()
+                                 for a, b in srcs])
+                folded = np.bitwise_xor.reduce(rows, axis=0)
+                assert nb == task.hi - task.lo
+                assert np.array_equal(lanes.numpy(), folded)
+                digests = crc.numpy().view(np.uint32)
+                if task.kind == 0 or want:
+                    assert enc.bucket_crc(digests, nb) == \
+                        zlib.crc32(folded[:nb].tobytes())
+                else:
+                    assert not digests.any()
+            kinds.add(task.kind)
+            in_pad += all(a >= spec.total_bytes for a, _ in srcs)
+    assert stage.encode_bucket.launches == 0
+    return kinds, in_pad
+
+
+def test_device_encoder_matches_gather_for_every_bucket():
+    cfg = get_config("opt-125m").reduced()
+    state = init_train_state(cfg, 0, device="cpu")
+    kinds, _ = _encode_every_bucket(state, 1 << 18)
+    assert kinds == {0, 2}
+
+
+def test_device_encoder_encodes_buckets_wholly_in_the_pad():
+    # 13 bytes over 12 RAIM5 blocks of 2 bytes: the last 5 blocks lie in
+    # the pad past total_bytes, so their 5 own buckets, and the parity
+    # bucket of the stripe of the last 3, have no leaf slice
+    state = convert.state_from_numpy(
+        {"a": np.arange(2, dtype=np.float32) + 1.5,
+         "b": np.arange(5, dtype=np.uint8) + 7}, device="cpu")
+    kinds, in_pad = _encode_every_bucket(state, 1 << 18)
+    assert kinds == {0, 2} and in_pad == 6
