@@ -35,6 +35,9 @@ Phases, each printed as it ends; any failure exits non-zero:
      every bf16 output also held row by row against the reference's own
      scale, then at small shapes at the contract's edges (ragged S,
      non-causal, window 1, B 2, hd 64 and 256), row by row in both types;
+     in every causal bf16 case, the first 64 rows' dq shown (no bound)
+     against the fp64 gradient with the exact D and with D from the
+     kernel's rounded O;
      the RAIM5 XOR parity kernel (xor_reduce) bit-exact at the opt-125m
      path's stripe, a 4 MiB bucket, an odd lane count (its 4-byte body),
      one row and eight rows, and the public entry point
@@ -72,7 +75,27 @@ Phases, each printed as it ends; any failure exits non-zero:
        software failure at step 6 recovered from disk (tier disk), with
        their median steps beside the REFT opt-125m path's of phase 4
        and the last save's d2h / serialize / persist seconds;
-  6. a `kernels` JSON line, the card's name and power limit, and as the
+  6. the supervised fault drill at full width, one path: `python -m
+     repro_torch.supervise.run` (in process) on opt-125m, seq 256, an SG
+     of 4, 24 steps, `--auto-tune`, seven seeded scenarios of every kind
+     (at least one mid-flight), the last a preempt that rebuilds the SG
+     with 2 members; fails unless the run's own exit checks hold, every
+     failure is recovered, every restore is byte-exact against the
+     oracle ring, the 4 -> 2 rebuild restored, and the old SG's /dev/shm
+     segments are gone once it did and none are left after the run;
+     prints each event, the goodput fraction and its seconds by
+     category, the cadence the tuner chose, and what the oracle ring
+     (a copy of the state on the card every step) costs a step;
+  7. delta flights and pipeline stages at full width: the trainer with
+     `--delta` (the two failures of phase 4, each restore byte-exact; the
+     dense per-bucket digest compare encodes every kind-2 bucket with
+     its CRC, counted on their own), then a delta chain over opt-125m's
+     state on the card through a dirty provider, its `.reft` / `.reftd`
+     family restored byte-exact (one path); then `MultiStageGroup(2, 2)`
+     over the state after a train step, one node lost in each stage,
+     both stages recovered byte-exact, each stage's tier printed (one
+     path);
+  8. a `kernels` JSON line, the card's name and power limit, and as the
      last line {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -120,6 +143,26 @@ DURABLE_ARGS = ["--arch", DURABLE_ARCH, "--seq", str(DURABLE_SEQ), "--batch",
                 "--verify-restores"]
 KEEP = 3                           # CheckpointSpec.keep, the default
 DURABLE = "durable tiers"          # the path's name in launches_by_path
+# phase 6: the supervised drill (`repro_torch.supervise.run`) at full width,
+# every fault kind, the last scenario a preempt that rebuilds the SG 4 -> 2
+DRILL = "supervised drill"
+DRILL_KINDS = ("software", "node", "smp", "laggard", "corrupt-stripe",
+               "slow-persist", "preempt")
+DRILL_ARGS = ["--arch", "opt-125m", "--seq", "256", "--batch", "2",
+              "--sg-size", str(SG), "--snapshot-every", "2",
+              "--ckpt-every", "8", "--steps", "24", "--seed", "0",
+              "--auto-tune", "--scenarios", "7",
+              "--kinds", ",".join(DRILL_KINDS), "--elastic-to", "2",
+              "--device", "cuda"]
+# phase 7: delta flights (the CLI's dense digest compare, then a chain
+# through a dirty provider), and one SG per pipeline stage
+DELTA = "delta run"
+DELTA_ARGS = ["--arch", "opt-125m", "--seq", "256", "--batch", "2",
+              "--delta", *RUN_ARGS]
+DELTA_STEPS = 4                    # the chain: a keyframe, then 3 deltas
+DELTA_TOUCHED = 4                  # leaves the chain's update touches
+STAGES = "stage run"
+N_PP, DP = 2, 2                    # MultiStageGroup(n_pp, dp)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense tensor cores
@@ -789,6 +832,63 @@ def _swa_fp64_given_o(torch, x, o_out, window, causal):
     return o, (dq, dk, dv)
 
 
+def _dq_first_rows(torch, x, o_out, rows, window, causal):
+    """fp64 dq of the first `rows` query rows (one (batch, query head) at a
+    time), with D = rowsum(dO o O) from `o_out` (the kernel's rounded O),
+    or from the fp64 O itself (the exact D) when `o_out` is None."""
+    B, S, KV, G, hd = x["q"].shape
+    pos = torch.arange(S, device="cuda")
+    d = pos[:rows, None] - pos[None, :]
+    ok = (d < (window or S)) & (-d < (window or S))
+    if causal:
+        ok &= d >= 0
+    dq = torch.empty((B, rows, KV, G, hd), dtype=torch.float64,
+                     device="cuda")
+    scale = hd ** -0.5
+    for b in range(B):
+        for h in range(KV):
+            kh, vh = (x[n][b, :, h].double() for n in "kv")
+            for g in range(G):
+                qh, doh = (x[n][b, :rows, h, g].double() for n in ("q", "do"))
+                p = torch.softmax(((qh @ kh.T) * scale)
+                                  .masked_fill(~ok, -math.inf), -1)
+                o = p @ vh if o_out is None \
+                    else o_out[b, :rows, h, g].double()
+                dd = (doh * o).sum(-1)
+                dq[b, :, h, g] = ((p * ((doh @ vh.T) - dd[:, None])) @ kh) \
+                    * scale
+    return dq
+
+
+def _dq_exact_d_gap(torch, tag, xs, o, dq, window, causal, rows=64):
+    """ROADMAP's open check, shown with no bound: in the first `rows` rows
+    of a causal band (few keys, a peaked softmax, dP - D cancelling), how
+    far the bf16 dq, which takes D from the rounded O, sits from the fp64
+    gradient with the exact D, beside its distance from the fp64 gradient
+    with D from the kernel's O (the yardstick the row check holds). Per
+    row: max |diff| over hd / (rms of the yardstick's row + the bf16 row
+    floor of SWA_ROW_TOL: row 0 of a band has one key, and its exact
+    gradient is 0)."""
+    rows = min(rows, xs["q"].shape[1])
+    floor = SWA_ROW_TOL["bfloat16"][2]
+    heads = xs["q"].shape[2] * xs["q"].shape[3]
+    got = dq[:, :rows].double()
+    out = {}
+    for name, o_out in (("exact D", None), ("D from the kernel's O", o)):
+        want = _dq_first_rows(torch, xs, o_out, rows, window, causal)
+        w = want.reshape(-1, want.shape[-1])
+        diff = (got.reshape(-1, got.shape[-1]) - w).abs().amax(-1)
+        ratio = diff / (w.pow(2).mean(-1).sqrt() + floor)
+        worst = int(ratio.argmax().item())
+        out[name] = (ratio.median().item(), ratio[worst].item(),
+                     worst // heads % rows, diff.max().item())
+    print(f"{tag} dq, first {rows} rows of the causal band, max|diff| / "
+          f"(rms(row) + {floor:g}) against fp64 (shown, no bound): "
+          + "; ".join(f"with the {k}: median {m:.3e}, worst {w:.3e} (row "
+                      f"{r}), max|diff| {d:.3e}"
+                      for k, (m, w, r, d) in out.items()))
+
+
 def _sdpa_yardstick(torch, x, window, causal):
     """One PyTorch call for the same function, timed and never on the
     path: scaled_dot_product_attention forced to the memory-efficient
@@ -865,6 +965,8 @@ def _swa_check(torch, K, label, x, window, causal, main_case, err):
         o64, g64 = (_swa_fp64_given_o(torch, xs, o, window, causal) if bf16
                     else _swa_fp64(torch, x, window, causal))
         tag = f"swa_flash {label} {str(dtype)[6:]}"
+        if bf16 and causal:
+            _dq_exact_d_gap(torch, tag, xs, o, grads[0], window, causal)
         enforce_rows = bf16 or not main_case
         for name, got, want, w64 in (("o", o, plain[0], o64),
                                      *zip(("dq", "dk", "dv"), grads,
@@ -1460,6 +1562,278 @@ def durable_path(torch, reft_median):
     return launches
 
 
+def _shm_runs():
+    """Run ids that hold snapshot-manager segments in /dev/shm."""
+    return {name.split("-")[1] for name in os.listdir("/dev/shm")
+            if name.startswith("reft-")}
+
+
+def _oracle_ring_ms(torch):
+    """What the supervisor's oracle ring costs a step: one copy of
+    opt-125m's train state on the card (`supervisor._copy_tree`, a
+    `Tensor.clone()` a leaf), CUDA-event time, beside the copy's bound
+    (the state read once and written once at the HBM rate)."""
+    from repro_torch.configs import get_config
+    from repro_torch.supervise.supervisor import _copy_tree
+    from repro_torch.train.steps import init_train_state
+    state = init_train_state(get_config("opt-125m"), 0, device="cuda")
+    ms = _cuda_ms(torch, lambda: _copy_tree(state), reps=5, trials=5)
+    bound = 2 * _state_bytes("opt-125m") / HBM_BYTES_PER_S * 1e3
+    del state
+    torch.cuda.empty_cache()
+    return ms, bound
+
+
+def drill_path(torch):
+    """Phase 6: `repro_torch.supervise.run` at full width (DRILL_ARGS), the
+    launch counts set to 0 just before it and read just after. Fails
+    unless the run's own exit checks pass, every kind fired, one at least
+    mid-flight, every failure recovered and every restore (the laggard's
+    verification restore among them) byte-exact, the elastic 4 -> 2
+    rebuild restored, and the old SG's /dev/shm segments were gone once
+    the rebuild restored and none are left after the run."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.supervise import FAILURE_KINDS
+    from repro_torch.supervise import run as drill
+    ckpt = tempfile.mkdtemp(prefix="reft-chip-drill-")
+    before = _shm_runs()
+    at_rebuild = []
+
+    def on_event(ev):
+        if ev.get("elastic"):
+            at_rebuild.append(sorted(_shm_runs() - before))
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = drill.run([*DRILL_ARGS, "--ckpt-dir", ckpt], on_event=on_event)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    left = sorted(_shm_runs() - before)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ring_ms, ring_bound_ms = _oracle_ring_ms(torch)
+    events = out["events"]
+    g = out["goodput"]
+    keys = ("kind", "node", "fired_step", "graceful", "tier",
+            "restored_step", "restore_s", "detect_s", "rolled_back",
+            "bit_exact", "elastic", "evicted", "recovered")
+    print(json.dumps({"drill": {
+        "wall_s": wall, "peak_device_gb": peak,
+        "scenarios": [[sc["step"], sc["kind"], sc["node"], sc["graceful"]]
+                      for sc in out["config"]["scenarios"]],
+        "events": [{k: e[k] for k in keys if k in e} for e in events],
+        "goodput_frac": g["goodput_frac"], "wall_seconds": g["wall_seconds"],
+        "seconds": g["seconds"], "accounting_error": g["accounting_error"],
+        "cadence": out["cadence"], "mtbf_s": out["mtbf_s"],
+        "shm_runs_at_rebuild": at_rebuild, "shm_runs_left": left,
+        "oracle_ring_ms_a_step": ring_ms,
+        "oracle_ring_bound_ms": ring_bound_ms,
+        "launches": launches}}, default=str))
+    bad = list(out["failed"])
+    if out["kinds"] != sorted(DRILL_KINDS):
+        bad.append(f"kinds fired {out['kinds']}")
+    if all(sc["graceful"] for sc in out["config"]["scenarios"]):
+        bad.append("no injection was mid-flight")
+    for e in events:
+        if e["kind"] in FAILURE_KINDS and not e.get("recovered"):
+            bad.append(f"{e['kind']} not recovered")
+        if (e["kind"] in FAILURE_KINDS or e["kind"] == "laggard") \
+                and e.get("bit_exact") is not True:
+            bad.append(f"{e['kind']}: bit_exact {e.get('bit_exact')}")
+    elastic = [e for e in events if e.get("elastic")]
+    if [e.get("elastic") for e in elastic] != [f"{SG}->2"] \
+            or not elastic[0].get("recovered"):
+        bad.append(f"elastic rebuild events {elastic}")
+    if len(at_rebuild) != 1 or len(at_rebuild[0]) != 1:
+        bad.append(f"SGs holding /dev/shm once the rebuild restored: "
+                   f"{at_rebuild} (want the new SG's alone)")
+    if left:
+        bad.append(f"/dev/shm segments left after the run: {left}")
+    if launches["encode_bucket"] <= 0:
+        bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError(f"{DRILL}: " + "; ".join(map(str, bad)))
+    print(f"{DRILL}: wall {wall:.3f} s, {len(events)} faults "
+          f"({sum(e['kind'] in FAILURE_KINDS for e in events)} failures), "
+          f"goodput {g['goodput_frac']:.4f}, accounting error "
+          f"{g['accounting_error']:.2e}, cadence {out['cadence']}, "
+          f"oracle ring a step {ring_ms:.4f} ms on the card (bound "
+          f"{ring_bound_ms:.4f} ms), launches {json.dumps(launches)}")
+    return launches
+
+
+def _delta_chain(torch, ckpt):
+    """A delta chain on the card over opt-125m's full state: an update that
+    touches DELTA_TOUCHED leaves a step, reported by the dirty provider
+    (`set_dirty_provider`), a snapshot and a persist round each step;
+    the newest step and the first delta restored from the chain, byte
+    for byte."""
+    from repro_torch.api import CheckpointSession, CheckpointSpec
+    from repro_torch.configs import get_config
+    from repro_torch.core.recovery import restore_from_checkpoint
+    from repro_torch.core.treebytes import (leaf_arrays, make_flat_spec,
+                                            tree_unflatten)
+    from repro_torch.supervise import trees_equal
+    from repro_torch.train.steps import init_train_state
+    state = init_train_state(get_config("opt-125m"), 0, device="cuda")
+    fspec = make_flat_spec(state)
+    # the smallest parameter leaves: the three norms' scales and one
+    # attention projection (stacked over the layers)
+    params = [i for i, ls in enumerate(fspec.leaves)
+              if ls.path.startswith("['params']")]
+    touched = sorted(params, key=lambda i: fspec.leaves[i].nbytes)[
+        :DELTA_TOUCHED]
+    ranges = [(fspec.leaves[i].offset,
+               fspec.leaves[i].offset + fspec.leaves[i].nbytes)
+              for i in touched]
+    spec = CheckpointSpec(backend="reft", ckpt_dir=ckpt, sg_size=SG,
+                          snapshot_every_steps=1,
+                          checkpoint_every_steps=10 ** 9, resume=False,
+                          options={"delta": True, "device_encode": "on"})
+    states, dirty = {}, [None]
+    t0 = time.perf_counter()
+    with CheckpointSession(spec, state) as sess:
+        sess.checkpointer.set_dirty_provider(lambda: dirty[0])
+        for step in range(1, DELTA_STEPS + 1):
+            if step > 1:
+                leaves = leaf_arrays(state)
+                for i in touched:
+                    leaves[i] = leaves[i] + 1
+                state = tree_unflatten(state, leaves)
+                dirty[0] = ranges
+            states[step] = state
+            if not sess.snapshot(state, step, wait=True):
+                raise AssertionError(f"{DELTA}: chain snapshot {step} "
+                                     f"refused")
+            sess.persist(step)
+        st = sess.stats()
+    files = sorted(os.listdir(ckpt))
+    t1 = time.perf_counter()
+    for step in (2, DELTA_STEPS):
+        got, at, _ = restore_from_checkpoint(ckpt, SG, state, step=step)
+        if at != step or not trees_equal(got, states[step]):
+            raise AssertionError(f"{DELTA}: chain restore of step {step} "
+                                 f"(got {at}) is not byte-exact")
+    print(f"{DELTA}: chain of {DELTA_STEPS} snapshots over opt-125m's "
+          f"state ({len(touched)} leaves touched a step, "
+          f"{sum(b - a for a, b in ranges)} B), {t1 - t0:.3f} s with the "
+          f"persists; delta_flights {st.get('delta_flights')} keyframes "
+          f"{st.get('keyframe_flights')} skipped_buckets "
+          f"{st.get('skipped_buckets')}; families "
+          f"{sum(f.endswith('.reft') for f in files)} .reft "
+          f"{sum(f.endswith('.reftd') for f in files)} .reftd; steps 2 and "
+          f"{DELTA_STEPS} restored from the chain byte-exact in "
+          f"{time.perf_counter() - t1:.3f} s")
+    if not st.get("delta_flights") or not st.get("skipped_buckets"):
+        raise AssertionError(f"{DELTA}: the chain took no delta flight: "
+                             f"{st}")
+
+
+def delta_path(torch):
+    """Phase 7a, one path (counts set to 0 before it, read after it): the
+    CLI with `--delta` at full width (RUN_ARGS' two failures, each restore
+    byte-exact, the dense per-bucket digest compare: every kind-2 bucket
+    encoded with its CRC), then `_delta_chain`."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.stage import encode_bucket
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="reft-chip-delta-")
+    try:
+        rep = _train([*DELTA_ARGS, "--ckpt-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    want = _want_tiers(rep, DELTA)
+    if _tiers(rep) != want:
+        raise AssertionError(f"{DELTA}: recoveries {rep['recoveries']}: "
+                             f"want {want}, all byte-exact")
+    st = rep["stats"]
+    cli_fold_crc = encode_bucket.fold_crc_launches
+    print(f"{DELTA} (--delta, the dense digest compare): "
+          f"{len(rep['step_seconds'])} steps, median step "
+          f"{statistics.median(rep['step_seconds']):.4f} s, delta_flights "
+          f"{st.get('delta_flights')} keyframes {st.get('keyframe_flights')} "
+          f"skipped_buckets {st.get('skipped_buckets')} base_misses "
+          f"{st.get('delta_base_misses')}; encode_bucket launches "
+          f"{launch_counts()['encode_bucket']}, kind-2 with CRC "
+          f"{cli_fold_crc}; recoveries {json.dumps(rep['recoveries'])}")
+    if not st.get("delta_flights"):
+        print(f"{DELTA}: the dense digest compare took no delta flight at "
+              f"full width")
+    if not cli_fold_crc:
+        raise AssertionError(f"{DELTA}: no kind-2 bucket encoded with its "
+                             f"CRC on the --delta run")
+    ckpt = tempfile.mkdtemp(prefix="reft-chip-delta-chain-")
+    try:
+        _delta_chain(torch, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = launch_counts()
+    fold_crc = encode_bucket.fold_crc_launches
+    print(f"{DELTA} path: wall {time.perf_counter() - t0:.3f} s, launches "
+          f"{json.dumps(launches)}, kind-2 with CRC {fold_crc}")
+    return launches, fold_crc
+
+
+def stage_path(torch):
+    """Phase 7b, one path: `MultiStageGroup(N_PP, DP)` over opt-125m's full
+    state after one train step, on the card; one node lost in each stage
+    at the same step, both stages recovered (each stage's tier printed)
+    and the joined state held byte for byte."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.multistage import MultiStageGroup
+    from repro_torch.core.snapshot import ReftConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.supervise import trees_equal
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = get_config("opt-125m")
+    state = init_train_state(cfg, 0, device="cuda")
+    ds = SyntheticDataset(cfg, InputShape("smoke", 256, 2, "train"), seed=0,
+                          device="cuda")
+    state, _ = make_train_step(cfg)(state, next(ds))
+    torch.cuda.synchronize()
+    ckpt = tempfile.mkdtemp(prefix="reft-chip-stages-")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    g = MultiStageGroup(N_PP, DP, state, ReftConfig(
+        ckpt_dir=ckpt, checkpoint_every_snapshots=10 ** 6))
+    try:
+        bytes_ = [grp.total_bytes for grp in g.groups]
+        t1 = time.perf_counter()
+        ok = g.snapshot(state, 1)
+        snap_s = time.perf_counter() - t1
+        enc = [e.stats["device_encode"] for grp in g.groups
+               for e in grp.engines]
+        for stage in range(N_PP):
+            g.inject_node_failure(stage, (stage + 1) % DP)
+        t1 = time.perf_counter()
+        rec, step, tier = g.recover()
+        rec_s = time.perf_counter() - t1
+        tiers = g.last_tiers
+        exact = trees_equal(rec, state)
+    finally:
+        g.close()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = launch_counts()
+    print(f"{STAGES}: {N_PP} stages x {DP} members, stage bytes {bytes_}, "
+          f"snapshot {snap_s:.3f} s, one node lost in each stage, recovered "
+          f"step {step} in {rec_s:.3f} s, stage tiers {tiers} (worst "
+          f"{tier}), byte-exact {exact}, device encode {enc}, wall "
+          f"{time.perf_counter() - t0:.3f} s, launches "
+          f"{json.dumps(launches)}")
+    if not (ok and step == 1 and exact and tiers == ["raim5"] * N_PP
+            and all(enc) and launches["encode_bucket"] > 0):
+        raise AssertionError(f"{STAGES}: snapshot {ok}, step {step}, tiers "
+                             f"{tiers}, byte-exact {exact}, device encode "
+                             f"{enc}, launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1485,7 +1859,14 @@ def main() -> int:
                                                  layers, must)
     phase("5 durable tiers at full width")
     by_path[DURABLE] = durable_path(torch, medians[DURABLE_ARCH])
-    phase("6 summary")
+    phase("6 supervised drill at full width")
+    by_path[DRILL] = drill_path(torch)
+    torch.cuda.empty_cache()
+    phase("7 delta flights and pipeline stages at full width")
+    by_path[DELTA], delta_fold_crc = delta_path(torch)
+    torch.cuda.empty_cache()
+    by_path[STAGES] = stage_path(torch)
+    phase("8 summary")
     own = frows[0]    # the path's instance: the fused own bucket
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     # bf16 (the path's type): tensor-core kernels; fp32: CUDA-core ones
@@ -1496,7 +1877,8 @@ def main() -> int:
                 "replaces": "src/repro/kernels/stage.py:159",
                 "max_abs_err": max_err, "ms": own["ms"],
                 "plain_ms": own["plain_ms"], "bound_ms": own["bound_ms"],
-                "bound_by": "bytes", "cases": rows, "fused_cases": frows},
+                "bound_by": "bytes", "cases": rows, "fused_cases": frows,
+                "kind2_crc_launches_by_path": {DELTA: delta_fold_crc}},
                {"name": "ssd_scan", "route": "cuda", "source": ssd_src,
                 "replaces": "src/repro/kernels/ssd_scan.py:60",
                 **ssd["ssd_scan"]},

@@ -112,6 +112,7 @@ class ReftCheckpointer(Checkpointer):
 
     name = "reft"
     persist_can_defer = True
+    snapshot_after_restore = True
 
     def __init__(self, spec: CheckpointSpec, state_template: Any):
         super().__init__(spec)

@@ -68,6 +68,10 @@ class CheckpointSession:
         self.checkpoint_every = max(1, spec.checkpoint_every_steps)
         self._last_snapshot = -1
         self._last_persist = -1
+        # set by restore() where heal() leaves members without a snapshot
+        # (`Checkpointer.snapshot_after_restore`): the next step snapshots
+        # whatever the cadence
+        self._reprotect = False
         self._last_call_t: Optional[float] = None
         self._step_times: List[float] = []
         self._degraded_seen: set = set()
@@ -144,9 +148,11 @@ class CheckpointSession:
             self._retune()
 
         did = {"snapshot": False, "launched": False, "persist": None}
-        if step - self._last_snapshot >= self.snapshot_every:
+        if self._reprotect or step - self._last_snapshot >= \
+                self.snapshot_every:
             if self.checkpointer.snapshot(state, step, extra_meta):
                 self._last_snapshot = step
+                self._reprotect = False
                 did["snapshot"] = True
             did["launched"] = did["snapshot"] or \
                 self.checkpointer.launched(step)
@@ -216,13 +222,23 @@ class CheckpointSession:
         """Run the backend's recovery ladder and heal failed members so
         training can continue with full protection.  `target` overrides
         the session's restore target for this one call (partial loads,
-        explicit reshard)."""
+        explicit reshard).
+
+        Under REFT a healed member holds no snapshot, so until one lands
+        on every member a second failure elsewhere leaves too few holders
+        of any step for a RAIM5 decode.  Unlike the JAX package, whose
+        cadence clock runs on (and, after a rollback, stays ahead of the
+        replayed steps), the next `after_step` therefore snapshots
+        whatever the cadence where the backend says so
+        (`Checkpointer.snapshot_after_restore`) — under `auto_tune` the
+        interval can outgrow the run."""
         t0 = time.monotonic()
         res = self._restore_call(step, target or self.restore_target)
         self.observer.record_restore(time.monotonic() - t0,
                                      tier=res.tier, load=res.load)
         self.checkpointer.heal()
         self._degraded_seen.clear()
+        self._reprotect = self.checkpointer.snapshot_after_restore
         return res
 
     def inject(self, kind: str, node: int = 0, graceful: bool = True,

@@ -126,6 +126,10 @@ class Checkpointer(abc.ABC):
     # step clean on every member yet, the first flights still in the air);
     # the session then tries again at the next step
     persist_can_defer: bool = False
+    # whether a restore's heal() leaves members holding no snapshot (REFT:
+    # a respawned SMP starts empty), so that the session snapshots at the
+    # next step whatever the cadence
+    snapshot_after_restore: bool = False
 
     # events kept for inspection are bounded; stats aggregate ALL events
     # incrementally so stats() stays O(1) (auto-tune calls it every step)

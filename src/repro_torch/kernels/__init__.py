@@ -44,3 +44,5 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+    from repro_torch.kernels.stage import encode_bucket
+    encode_bucket.fold_crc_launches = 0

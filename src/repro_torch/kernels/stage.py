@@ -248,6 +248,8 @@ def _launch(args: _Args, *, gather: bool, k: int, n: int, nbytes: int,
         raise RuntimeError(f"encode_bucket launch failed: "
                            f"{lib.reft_cuda_error_string(rc).decode()}")
     encode_bucket.launches += 1
+    if k > 1 and want_crc:
+        encode_bucket.fold_crc_launches += 1
     return out, crc
 
 
@@ -282,6 +284,10 @@ def encode_bucket(blocks: torch.Tensor, *, nbytes: int,
 
 
 encode_bucket.launches = 0     # kernel launches of both entries
+# of which folded two rows or more and CRC'd the fold: on an SG of 3 or
+# more members, the delta path's kind-2 buckets (their digest is the skip
+# signal); own buckets are one row, parity without the delta no CRC
+encode_bucket.fold_crc_launches = 0
 
 
 # ------------------------------------------------------- the fused gather

@@ -26,7 +26,10 @@ Runs on CUDA unless `--device cpu` asks for the CPU; with no CUDA device
 and no `--device cpu` it raises.  `--verify-restores` records the CRC32 of
 the whole state at every snapshotted step and checks each restored state
 against it, byte for byte.  `--layers N` cuts the depth to N layers and
-keeps every width.
+keeps every width.  `--delta` turns on dirty-delta snapshotting (on a
+dense arch, the per-bucket digest compare; reft and objstore only),
+`--auto-tune` the Appendix-A adaptive cadence, and `--no-reft` is
+`--backend null`.
 """
 from __future__ import annotations
 
@@ -84,9 +87,15 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default="/tmp/reft-train-ckpt")
     ap.add_argument("--resume", action="store_true",
                     help="restore-on-entry from ckpt-dir if possible")
+    ap.add_argument("--auto-tune", action="store_true",
+                    help="Appendix-A adaptive snapshot cadence")
     ap.add_argument("--blocking-persist", action="store_true",
                     help="run cadence persists inline (the pre-overlap "
                          "behavior) instead of fire-and-poll")
+    ap.add_argument("--delta", action="store_true",
+                    help="dirty-delta snapshotting: the per-bucket digest "
+                         "compare skips buckets whose bytes did not change "
+                         "(the MoE touched-expert provider is not ported)")
     ap.add_argument("--device-encode", default="auto",
                     choices=["auto", "on", "off"],
                     help="bucket encode on the device (auto: when the "
@@ -100,7 +109,11 @@ def parse_args(argv=None):
     ap.add_argument("--verify-restores", action="store_true",
                     help="check every restored state byte for byte "
                          "against the state saved at that step")
+    ap.add_argument("--no-reft", action="store_true",
+                    help="legacy alias for --backend null")
     args = ap.parse_args(argv)
+    if args.no_reft:
+        args.backend = "null"
     return ap, args
 
 
@@ -144,11 +157,13 @@ def run(argv=None) -> dict:
         injections[sc.step] = sc
     if injections and args.backend == "null":
         ap.error("--inject needs a backend that can restore (not null)")
+    if args.delta and args.backend not in ("reft", "objstore"):
+        ap.error("--delta needs the reft backend family")
 
     print(f"[train] arch={cfg.name} layers={cfg.num_layers} "
           f"params={cfg.param_count():,} "
           f"batch={args.batch}x{args.seq} backend={args.backend} "
-          f"device={device}")
+          f"device={device}" + (" delta" if args.delta else ""))
     state = init_train_state(cfg, 0, device=device)
     ds = SyntheticDataset(cfg, shape, seed=0, device=device)
     step_fn = make_train_step(cfg)
@@ -160,9 +175,11 @@ def run(argv=None) -> dict:
         snapshot_every_steps=args.snapshot_every,
         checkpoint_every_steps=args.ckpt_every,
         resume=args.resume,
+        auto_tune=args.auto_tune,
         options={"device_encode": args.device_encode,
                  **({"persist_blocking": True} if args.blocking_persist
-                    else {})},
+                    else {}),
+                 **({"delta": True} if args.delta else {})},
     )
 
     report = {"losses": [], "step_seconds": [], "step_beside_flight": [],
@@ -281,6 +298,12 @@ def run(argv=None) -> dict:
                   f"retries={st.get('persist_upload_retries', 0)} "
                   f"throttle_s="
                   f"{st.get('persist_throttle_seconds', 0.0):.3f}")
+        if st.get("delta_flights") or st.get("keyframe_flights"):
+            print(f"[{args.backend}] "
+                  f"delta_flights={st.get('delta_flights', 0)} "
+                  f"keyframes={st.get('keyframe_flights', 0)} "
+                  f"skipped_buckets={st.get('skipped_buckets', 0)} "
+                  f"base_misses={st.get('delta_base_misses', 0)}")
         if st.get("scrub_passes"):
             print(f"[{args.backend}] scrub_passes={st['scrub_passes']} "
                   f"families={st.get('scrub_families', 0)} "

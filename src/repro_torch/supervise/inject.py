@@ -1,10 +1,8 @@
-"""Fault injection for training runs (the parts of the reference's
-`supervise/inject.py` that the trainer, the session and the reft backend
-use; the supervisor's scenario planner is not ported yet).
+"""Deterministic fault-scenario engine for supervised training runs.
 
 The paper treats failures as routine; this module makes them *injectable*
-on demand and mid-flight.  A `Scenario` names one fault from the ROADMAP
-taxonomy:
+on demand, mid-flight, and reproducibly.  A `Scenario` names one fault
+from the ROADMAP taxonomy:
 
   software        trainer-process crash (engine marked UNHEALTHY)
   node            whole-node loss (SMP killed + shm segments unlinked)
@@ -15,13 +13,18 @@ taxonomy:
   preempt         spot reclaim: SIGTERM-style notice, grace_s to drain,
                   then the node is gone
 
-`corrupt_shm_stripe` writes real damage — XORing bytes in an attached shm
-segment — so detection has to be earned by the CRC machinery, not
-simulated.
+`plan_scenarios(seed, ...)` derives a schedule from a single RNG seed so
+every sweep episode, CI smoke, and bug report replays byte-identically
+(the same seed gives the JAX package's plan).  Corruption helpers write
+real damage — XORing bytes in an attached shm segment or a `.reft` file
+past its pickled head — so detection has to be earned by the CRC
+machinery, not simulated.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import os
+import pickle
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 
@@ -81,6 +84,60 @@ def parse_scenario(text: str, *, default_node: int = 0) -> Scenario:
     return Scenario(kind=kind, step=step, node=node)
 
 
+def plan_scenarios(seed: int, *, n: int, total_steps: int, count: int,
+                   kinds=KINDS, first_step: int = 3,
+                   min_gap: int = 2) -> list:
+    """Derive a deterministic schedule of `count` scenarios from `seed`.
+
+    Steps are spread over [first_step, total_steps) with at least
+    `min_gap` steps between consecutive faults so each one can be healed
+    before the next lands; kinds cycle through a seed-shuffled order so
+    a small `count` still covers distinct kinds; every non-parametric
+    fault targets a seed-chosen node.  Same seed -> same plan, always.
+    """
+    kinds = tuple(kinds)
+    if not kinds:
+        raise ValueError("kinds must be non-empty")
+    rng = np.random.default_rng(seed)
+    span = max(total_steps - first_step, count * min_gap)
+    # spread: one fault per equal slice of the run, jittered inside it
+    slice_w = span / count
+    steps, prev = [], first_step - min_gap
+    for i in range(count):
+        lo = first_step + int(i * slice_w)
+        hi = max(first_step + int((i + 1) * slice_w) - 1, lo + 1)
+        s = int(rng.integers(lo, hi))
+        s = max(s, prev + min_gap)
+        steps.append(s)
+        prev = s
+    order = list(kinds)
+    rng.shuffle(order)
+    out = []
+    for i, step in enumerate(steps):
+        kind = order[i % len(order)]
+        node = int(rng.integers(0, n))
+        graceful = bool(rng.integers(0, 2))
+        out.append(Scenario(kind=kind, step=step, node=node,
+                            graceful=graceful))
+    return out
+
+
+def ensure_coverage(scenarios, *, kinds, n: int) -> list:
+    """Rewrite a plan so it covers every kind in `kinds` at least once,
+    keeping steps/nodes/gracefulness fixed (used by CI smokes that must
+    hit >=4 distinct kinds regardless of the seed's shuffle)."""
+    want = [k for k in kinds if k not in {s.kind for s in scenarios}]
+    out = list(scenarios)
+    for i in range(len(out) - 1, -1, -1):
+        if not want:
+            break
+        dupes = [s.kind for s in out].count(out[i].kind)
+        if dupes > 1:
+            out[i] = replace(out[i], kind=want.pop(), params={})
+    return out
+
+
+# ------------------------------------------------------- corruption helpers
 def corrupt_shm_stripe(run: str, node: int, n: int, total_bytes: int,
                        *, seed: int = 0, nbytes: int = 16,
                        step: int = None, region: str = "own") -> dict:
@@ -111,3 +168,25 @@ def corrupt_shm_stripe(run: str, node: int, n: int, total_bytes: int,
         return {"step": int(tgt), "offset": off, "nbytes": int(nbytes)}
     finally:
         view.close()
+
+
+def corrupt_reft_file(path: str, *, seed: int = 0, nbytes: int = 16) -> dict:
+    """Flip `nbytes` bytes in a `.reft` member file's data region (past
+    the pickled head, so the family still opens but fails its digest /
+    CRC check).  Returns {offset, nbytes}."""
+    with open(path, "rb") as f:
+        pickle.load(f)                # skip the head
+        data_off = f.tell()
+    size = os.path.getsize(path)
+    if size - data_off < nbytes:
+        raise RuntimeError(f"{path}: data region too small to corrupt")
+    rng = np.random.default_rng(seed)
+    off = data_off + int(rng.integers(0, size - data_off - nbytes + 1))
+    with open(path, "r+b") as f:
+        f.seek(off)
+        chunk = bytearray(f.read(nbytes))
+        for i in range(len(chunk)):
+            chunk[i] ^= 0xFF
+        f.seek(off)
+        f.write(bytes(chunk))
+    return {"offset": off, "nbytes": int(nbytes)}

@@ -37,12 +37,14 @@ def test_import_every_module_leaves_jax_out():
 
 @pytest.mark.parametrize("module", ["repro_torch.core.smp",
                                     "repro_torch.launch.train",
+                                    "repro_torch.supervise.run",
                                     "repro_torch.store",
                                     "repro_torch.store.scrub"])
 def test_spawned_smp_imports_stay_torch_free(module):
     """SMP children start with `spawn`: they import `core.smp` and re-import
-    the launching `__main__` module, and their persist worker imports
-    `repro_torch.store` to upload shards; all must stay numpy-only."""
+    the launching `__main__` module (the trainer's or the supervised
+    drill's), and their persist worker imports `repro_torch.store` to
+    upload shards; all must stay numpy-only."""
     r = _python(f"import sys, {module}\n"
                 "assert 'torch' not in sys.modules\n"
                 "assert 'jax' not in sys.modules\n")
