@@ -25,12 +25,20 @@ Phases, each printed as it ends; any failure exits non-zero:
      (TF32 off), at mamba2-130m's shape with a zero and a random initial
      state and at SSD_EDGE_CASES (Q 250, ragged P and N, N 16 and 256, Q
      1), two launches bit-equal, timed beside the bound of the products
-     they do (bf16x3) and the serial kernels' fp32 bound; the sliding-window flash
+     they do (bf16x3) and the serial kernels' fp32 bound, and the
+     forward alone at the serving path's calls (mamba2-130m's prefill,
+     32 x 32768, and the decode check's, 128 x 24), the whole batch
+     launched and each row held against the plain scan on that row in
+     fp32 and in fp64; the sliding-window flash
      attention's forward and backward kernels (the fp32 route's CUDA-core
      kernels, the bf16 route's tensor-core kernels, whose backward time
      includes its D pre-pass) against the plain flash attention and its
      autograd, in fp32 and in bf16, at starcoder2-3b's
-     shape and at gemma3-4b's head shape (local and global window), with
+     shape and at gemma3-4b's head shape (local and global window), the
+     forward alone in bf16 at the serving path's prefill calls (S 32768:
+     gemma3-4b's local and global layers at its 8 rows, starcoder2-3b's
+     at its 12), the whole batch launched and each row held against the
+     plain version on that row, timed at the batch and at one row, with
      SDPA's memory-efficient attention timed beside them as a yardstick,
      every bf16 output also held row by row against the reference's own
      scale, then at small shapes at the contract's edges (ragged S,
@@ -95,8 +103,28 @@ Phases, each printed as it ends; any failure exits non-zero:
      over the state after a train step, one node lost in each stage,
      both stages recovered byte-exact, each stage's tier printed (one
      path);
-  8. a `kernels` JSON line, the card's name and power limit, and as the
-     last line {"ok": true, "device": {...}}.
+  8. serving at full width and full depth, one path (counts set to 0
+     before it, read after it): gemma3-4b (34 layers), starcoder2-3b (30)
+     and mamba2-130m (24), weights from a seed on the card, each through
+     `models.model`'s `logits_fn` (prefill_32k's 32768 tokens, timed; its
+     caches shaped as `init_cache`'s), a decode check (24 teacher-forced
+     tokens through `decode_step` from an empty cache of the decode
+     shape's length, the last logits and the caches decode wrote held
+     against `logits_fn`'s: in fp32 on fp32 copies of the weights (the
+     first rows that fit) at DECODE_FP32_TOL, then in bf16 at a bound
+     scaled by the bf16 prefill's distance from the fp32 one), then decode
+     steps timed at the full cache (gemma3-4b decode_32k, starcoder2-3b
+     long_500k, mamba2-130m decode_32k) beside their bound (weights and
+     cache read once at the HBM rate), peak device memory; the prefills
+     launch swa_flash and ssd_scan in every layer; then `python -m
+     repro_torch.examples.serve --device cuda` and `python -m
+     repro_torch.analyze --strict src/repro_torch` as subprocesses;
+  9. a `serving` and a `kernels` JSON line, the card's name and power
+     limit, and as the last line {"ok": true, "device": {...}}.
+
+`python3 chip_smoke.py --step-time ROOT [ROOT ...]` instead times the
+phase-4 paths' training steps with no checkpointing under each checkout
+ROOT's trainer (`step_time`).
 
 Exits non-zero without a result when no CUDA device is present, or when
 run outside a checkout of the repository (it needs `src/repro_torch`).
@@ -166,10 +194,47 @@ N_PP, DP = 2, 2                    # MultiStageGroup(n_pp, dp)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense tensor cores
-# the swa_flash shapes: (label, B, S, KV, G, hd, window, causal, on path)
+# phase 8: serving (prefill, then decode) at full width and full depth:
+# (arch, prefill rows at prefill_32k, decode shape, decode batch, rows of
+# the fp32 decode check). The batches are cut from the shapes' (32
+# prefill rows; decode_32k 128) only as far as the card's memory forces:
+# the caches, their byte counts in PERF.md §4, beside the weights. The
+# fp32 check's rows: its caches at the decode shape's length take twice
+# the bf16 bytes beside the fp32 weights (gemma3-4b 9.1 GB a row beside
+# 18.2 GB; starcoder2-3b 32.2 GB beside 17.3 GB)
+SERVING = "serving"
+SERVE_RUNS = [("gemma3-4b", 8, "decode_32k", 12, 2),
+              ("starcoder2-3b", 12, "long_500k", 1, 1),
+              ("mamba2-130m", 32, "decode_32k", 128, 128)]
+SERVE_T = 24                       # teacher-forced tokens held vs logits_fn
+SERVE_TIMED = 16                   # decode steps timed at the full Smax
+# decode's bf16 bound: for the logits (each request's row) and each cache
+# leaf, ||decode - prefill|| / ||prefill|| <= DECODE_BF16_K times the same
+# distance of the bf16 prefill from an fp32 prefill of the same weights;
+# from the CPU's spread of the reduced configs (decode departs at most
+# 1.05x as far as bf16 from fp32 there: tests/test_torch_decode.py::
+# test_bf16_decode_spread_is_within_the_chip_bound)
+DECODE_BF16_K = 2.0
+# decode's fp32 bound, by family: the same distances, fp32 weights,
+# decode against the fp32 prefill. On the CPU (reduced widths, full
+# depth) attention decodes exactly what its prefill computes (0) and
+# Mamba2 departs by 3.1e-5, 9.1e-5 with the SSD inputs rounded as the
+# kernel's bf16x3 products round them; the bounds are about ten times
+# that (tests/test_torch_decode.py::test_fp32_decode_is_within_the_chip_bound)
+DECODE_FP32_TOL = {"dense": 1e-4, "ssm": 1e-3}
+# the swa_flash shapes: (label, B, S, KV, G, hd, window, causal, on path:
+# True for the training path's shape, fwd and bwd; SERVING for a layer
+# kind of the serving path's prefill at S 32768, forward only: timed at
+# B 1, held row by row at the prefill's batch, `_serve_batch`)
 SWA_CASES = [("starcoder2-3b", 1, 16384, 2, 12, 128, 4096, True, True),
              ("gemma3-4b local", 1, 8192, 4, 2, 256, 1024, True, False),
-             ("gemma3-4b global", 1, 8192, 4, 2, 256, None, True, False)]
+             ("gemma3-4b global", 1, 8192, 4, 2, 256, None, True, False),
+             ("gemma3-4b prefill local", 1, 32768, 4, 2, 256, 1024, True,
+              SERVING),
+             ("gemma3-4b prefill global", 1, 32768, 4, 2, 256, None, True,
+              SERVING),
+             ("starcoder2-3b prefill", 1, 32768, 2, 12, 128, 4096, True,
+              SERVING)]
 # small shapes at the edges of the wrappers' contract: (label, B, S, KV, G,
 # hd, window, causal)
 SWA_EDGE_CASES = [("ragged S, hd 64", 1, 200, 2, 3, 64, 70, True),
@@ -664,11 +729,82 @@ def _ssd_held(torch, K, label, x, Q, strict=True):
     return err, worst
 
 
+def _ssd_serving_cases():
+    """(label, B, S) of the serving path's calls of the SSD forward:
+    mamba2-130m's prefill (its prefill_32k rows) and the decode check's
+    prefill (its decode batch, SERVE_T tokens)."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    run = {r[0]: r for r in SERVE_RUNS}["mamba2-130m"]
+    return [("mamba2-130m prefill", run[1],
+             INPUT_SHAPES["prefill_32k"].seq_len),
+            ("mamba2-130m decode-check prefill", run[3], SERVE_T)]
+
+
+def _ssd_forward_case(torch, K, gen, label, B, S):
+    """A serving-path call of the SSD forward kernels (h0 None, as
+    `ssm_block`'s prefill makes it) at the path's whole batch: each row of
+    y and h_final against the plain chunked scan on that row alone, in
+    fp32 and in fp64, at `_ssd_held`'s forward tolerance (allclose atol
+    5e-4, rtol 1e-3); then the call timed beside its bound. -> its row."""
+    _, _, H, P, N, chunk = _ssd_shape()
+    Q = K.chunk_len(S, chunk)
+    x = _ssd_inputs(torch, gen, (B, S, H, P, N, Q), False)
+    u, a, Bm, Cm = (x[k] for k in ("u", "a", "Bm", "Cm"))
+    del x
+    y, hf, _ = K.ssd_scan_fwd(u, a, Bm, Cm, chunk=Q)
+    torch.cuda.synchronize()
+    worst = {"fp32": (0.0, 0), "fp64": (0.0, 0)}
+    err = 0.0
+    for b in range(B):
+        for dt, tag in ((torch.float32, "fp32"), (torch.float64, "fp64")):
+            yp, hfp = K.ssd_scan_plain(*(t[b:b + 1].to(dt)
+                                         for t in (u, a, Bm, Cm)), chunk=Q)
+            for got, want in ((y[b:b + 1], yp), (hf[b:b + 1], hfp)):
+                d = (got.to(dt) - want).abs()
+                ratio = (d / (5e-4 + 1e-3 * want.abs())).max().item()
+                if not ratio <= 1:
+                    raise AssertionError(
+                        f"ssd_scan {label}: row {b} of {B} disagrees with "
+                        f"the {tag} plain scan (allclose ratio {ratio:.3e})")
+                worst[tag] = max(worst[tag], (ratio, b))
+                if tag == "fp32":
+                    err = max(err, d.max().item())
+            del yp, hfp
+    print(f"ssd_scan {label} ({B}x{S}, Q {Q}): y and h_final, each of {B} "
+          f"rows against the plain scan on the row: max|diff| vs fp32 "
+          f"{err:.3e}; worst allclose (atol 5e-4, rtol 1e-3) ratio "
+          + ", ".join(f"{t} {r:.3e} (row {b})"
+                      for t, (r, b) in worst.items()))
+    del y, hf
+    torch.cuda.empty_cache()
+    ms = _cuda_ms(torch, lambda: K.ssd_scan_fwd(u, a, Bm, Cm, chunk=Q),
+                  reps=3, trials=5, hold_cycles=HOLD_CYCLES)
+    plain_row_ms = _host_ms(torch, lambda: K.ssd_scan_plain(
+        u[:1], a[:1], Bm[:1], Cm[:1], chunk=Q))
+    flops = ssd_flops(B, S, H, P, N, Q)[0]
+    ops_ms = 3 * flops / BF16_FLOPS * 1e3
+    bytes_ms = ssd_bytes(B, S, H, P, N, Q)[0] / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    print(f"ssd_scan {label}: ms={ms:.4f} bound_ms={bound_ms:.5f} "
+          f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; "
+          f"{ms / bound_ms:.1f}x bound); plain, one row: "
+          f"{plain_row_ms:.3f} ms")
+    del u, a, Bm, Cm
+    torch.cuda.empty_cache()
+    return {"label": label, "shape": [B, S, H, P, N, Q], "ms": ms,
+            "bound_ms": bound_ms, "bound_by": "operations"
+            if ops_ms >= bytes_ms else "bytes",
+            "plain_ms_one_row": plain_row_ms, "max_abs_err": err,
+            "worst_ratio": {t: r for t, (r, _) in worst.items()}}
+
+
 def check_ssd(torch):
     """The SSD forward and backward kernels against the plain chunked scan
     and its autograd, fp32 and fp64 (`_ssd_held`), at mamba2-130m's shapes
     (h0 zero and random) and at SSD_EDGE_CASES; two launches bit-equal;
-    then the main path's call timed beside its bound."""
+    the forward at the serving path's calls, row by row
+    (`_ssd_forward_case`); then the main path's call timed beside its
+    bound."""
     K = importlib.import_module("repro_torch.kernels.ssd_scan")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch.backends.cuda.matmul.allow_tf32 = "
@@ -697,6 +833,10 @@ def check_ssd(torch):
     for label, *shape in SSD_EDGE_CASES:
         x = _ssd_inputs(torch, gen, shape, True)
         _ssd_held(torch, K, label, x, K.chunk_len(shape[1], shape[5]))
+    del x
+    torch.cuda.empty_cache()
+    serving = [_ssd_forward_case(torch, K, gen, *case)
+               for case in _ssd_serving_cases()]
 
     # timing at the main path's call: h0 None, h_final unused (dh_final
     # None), states saved for the backward
@@ -733,6 +873,8 @@ def check_ssd(torch):
                       "old_bound_ms": old_bound_ms,
                       "max_abs_err": err["fwd" if name == "ssd_scan"
                                          else "bwd"]}
+        if name == "ssd_scan":
+            rows[name]["serving_cases"] = serving
         print(f"{name}: ms={ms:.4f} plain_ms={plain_ms:.3f} "
               f"bound_ms={bound_ms:.5f} (bf16x3: 3 x {flops / 1e9:.3f} "
               f"GFLOP at 989.4 TFLOP/s -> {ops_ms:.5f} ms, "
@@ -889,11 +1031,12 @@ def _dq_exact_d_gap(torch, tag, xs, o, dq, window, causal, rows=64):
                       for k, (m, w, r, d) in out.items()))
 
 
-def _sdpa_yardstick(torch, x, window, causal):
+def _sdpa_yardstick(torch, x, window, causal, backward=True):
     """One PyTorch call for the same function, timed and never on the
     path: scaled_dot_product_attention forced to the memory-efficient
     backend, with the band as a boolean mask and K/V repeated to the H
-    query heads. -> (backend or None, fwd ms, bwd ms, why)."""
+    query heads. -> (backend or None, fwd ms, bwd ms (None without
+    `backward`), why)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     B, S, KV, G, hd = x["q"].shape
@@ -915,9 +1058,10 @@ def _sdpa_yardstick(torch, x, window, causal):
             fwd = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask), reps=3, trials=3,
                 hold_cycles=HOLD_CYCLES)
-            bwd = _cuda_ms(torch, lambda: torch.autograd.grad(
-                out, (q, k, v), do, retain_graph=True), reps=3, trials=3,
-                hold_cycles=HOLD_CYCLES)
+            bwd = None if not backward else _cuda_ms(
+                torch, lambda: torch.autograd.grad(
+                    out, (q, k, v), do, retain_graph=True), reps=3,
+                trials=3, hold_cycles=HOLD_CYCLES)
         return backend.name, fwd, bwd, None
     except (RuntimeError, torch.OutOfMemoryError) as e:
         return None, None, None, f"{type(e).__name__}: {e}"[:300]
@@ -1005,11 +1149,103 @@ def _swa_check(torch, K, label, x, window, causal, main_case, err):
         torch.cuda.empty_cache()
 
 
+def _serve_batch(arch):
+    """The prefill rows SERVE_RUNS gives `arch`."""
+    return {a: b for a, b, *_ in SERVE_RUNS}[arch]
+
+
+def _swa_bound(B, S, KV, G, hd, window, causal):
+    """(bound ms, bound_by, GFLOP) of a bf16 forward call."""
+    heads = B * KV * G
+    flops = 4 * hd * band_pairs(S, window, causal) * heads
+    nbytes = 2 * (2 * B * S * KV * G * hd + 2 * B * S * KV * hd) \
+        + 4 * heads * S
+    ops_ms = flops / BF16_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops / 1e9)
+
+
+def _swa_forward_case(torch, K, gen, label, B1, S, KV, G, hd, window,
+                      causal):
+    """A layer kind of the serving path's prefill, forward only, in bf16
+    (the path's type), at the prefill's whole batch (`_serve_batch` of
+    the label's model, the shape the path gives the kernel): each row of
+    the kernel's output against the plain flash attention on that row
+    alone (the same bf16 values, computed in fp32), at the bf16 forward
+    tolerance (allclose atol 3e-2, rtol 3e-2) and row by row
+    (`_rows_held`); the whole-batch call timed beside its bound, then
+    its first B1 rows alone timed beside the plain version and SDPA's
+    forward. -> its row."""
+    B = _serve_batch(label.split()[0])
+    bf = lambda *s: torch.randn(*s, generator=gen,           # noqa: E731
+                                device="cuda").bfloat16()
+    q, k, v = bf(B, S, KV, G, hd), bf(B, S, KV, hd), bf(B, S, KV, hd)
+    o, _ = K.swa_flash_fwd(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    tag = f"swa_flash {label} bf16 o (forward only)"
+    d, top, worst = 0.0, 0.0, (0.0, 0.0, 0, 0)
+    for b in range(B):
+        want = K.swa_flash_plain(q[b:b + 1].float(), k[b:b + 1].float(),
+                                 v[b:b + 1].float(), window=window,
+                                 causal=causal)
+        got = o[b:b + 1].float()
+        db = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, atol=3e-2, rtol=3e-2)
+        tensor, row, at = _rows_held(torch, o[b:b + 1], want, torch.bfloat16)
+        if not (ok and tensor <= 1 and row <= 1):
+            print(f"{tag}, row {b} of {B}: max|diff| {db:.3e}; allclose "
+                  f"{ok}; rows: tensor {tensor:.3f}, worst row {row:.3f} "
+                  f"(row {at}) of the bound", flush=True)
+            raise AssertionError(f"{tag} disagrees in row {b} of {B}")
+        d, top = max(d, db), max(top, want.abs().max().item())
+        worst = max(worst, (row, tensor, b, at))
+        del want, got
+    print(f"{tag}, each of {B} rows against the plain version on the row: "
+          f"max|diff| {d:.3e} (max|ref| {top:.3e}); allclose (atol 3e-2, "
+          f"rtol 3e-2) True; worst row {worst[0]:.3f} of the bound "
+          f"(batch row {worst[2]}, row {worst[3]}; its tensor "
+          f"{worst[1]:.3f})")
+    del o
+    torch.cuda.empty_cache()
+    batch_ms = _cuda_ms(torch, lambda: K.swa_flash_fwd(
+        q, k, v, window=window, causal=causal), reps=3, trials=5,
+        hold_cycles=HOLD_CYCLES)
+    batch_bound, _, batch_gflop = _swa_bound(B, S, KV, G, hd, window,
+                                             causal)
+    torch.cuda.empty_cache()
+    q, k, v = (t[:B1].contiguous() for t in (q, k, v))
+    ms = _cuda_ms(torch, lambda: K.swa_flash_fwd(
+        q, k, v, window=window, causal=causal), reps=5, trials=5,
+        hold_cycles=HOLD_CYCLES)
+    plain_ms = _host_ms(torch, lambda: K.swa_flash_plain(
+        q, k, v, window=window, causal=causal))
+    torch.cuda.empty_cache()
+    backend, lib_ms, _, why = _sdpa_yardstick(
+        torch, {"q": q, "k": k, "v": v, "do": q}, window, causal,
+        backward=False)
+    torch.cuda.empty_cache()
+    bound_ms, bound_by, gflop = _swa_bound(B1, S, KV, G, hd, window, causal)
+    print(f"swa_flash {label}: B={B} ms={batch_ms:.4f} bound_ms="
+          f"{batch_bound:.5f} ({batch_gflop:.1f} GFLOP; "
+          f"{batch_ms / batch_bound:.2f}x bound); B={B1} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f} library_ms={lib_ms} ({backend or why}) "
+          f"bound_ms={bound_ms:.5f} ({gflop:.1f} GFLOP; "
+          f"{ms / bound_ms:.2f}x bound)")
+    return {"label": label, "shape": [B1, S, KV, G, hd],
+            "window": window, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "max_abs_err_bf16": d, "path_batch": B,
+            "path_batch_ms": batch_ms, "path_batch_bound_ms": batch_bound,
+            "path_batch_worst_row": worst[0]}
+
+
 def check_swa(torch):
     """The swa_flash forward and backward kernels against the plain flash
     attention and its autograd (`_swa_check`, both types), at
     starcoder2-3b's path shape and gemma3-4b's head shape (window 1024,
-    then the full window), then at SWA_EDGE_CASES, TF32 off. The plain
+    then the full window), the forward alone at the serving prefill's
+    rows (`_swa_forward_case`), then at SWA_EDGE_CASES, TF32 off. The plain
     version computes in fp32 whatever its inputs' type. Times in bf16 at
     SWA_CASES; the bound at the bf16 tensor-core peak or the HBM rate,
     whichever is larger."""
@@ -1017,8 +1253,13 @@ def check_swa(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {"fwd": 0.0, "bwd": 0.0, "fwd_bf16": 0.0, "bwd_bf16": 0.0}
-    rows = {}
+    rows, serving = {}, []
     for label, B, S, KV, G, hd, window, causal, on_path in SWA_CASES:
+        if on_path == SERVING:
+            serving.append(_swa_forward_case(torch, K, gen, label, B, S, KV,
+                                             G, hd, window, causal))
+            torch.cuda.empty_cache()
+            continue
         x = _swa_inputs(torch, gen, B, S, KV, G, hd)
         _swa_check(torch, K, label, x, window, causal, True, err)
 
@@ -1085,6 +1326,7 @@ def check_swa(torch):
                                         else "bwd"]
         rows[name]["max_abs_err_bf16"] = err[
             "fwd_bf16" if name == "swa_flash" else "bwd_bf16"]
+    rows["serving_cases"] = serving
     return rows
 
 
@@ -1834,6 +2076,269 @@ def stage_path(torch):
     return launches
 
 
+def _rel(got, want, rows=False):
+    """||got - want|| / ||want|| in fp64; with `rows`, the largest over
+    the first axis (each request's logits)."""
+    d = (got.double() - want.double()).flatten(1 if rows else 0)
+    w = want.double().flatten(1 if rows else 0)
+    return (d.norm(dim=-1) / w.norm(dim=-1)).max().item()
+
+
+# what a PyTorch kernel's name says it does, first match wins
+KERNEL_KINDS = [("direct_copy_kernel", "copy/cast"), ("addcmul", "addcmul"),
+                ("MulFunctor", "mul"), ("softmax", "softmax"),
+                ("where", "where"), ("reduce_kernel", "reduction"),
+                ("index", "index"), ("gemm", "matmul"), ("gemv", "matmul"),
+                ("nvjet", "matmul"), ("xmma", "matmul")]
+
+
+def _kernel_kind(name):
+    for part, kind in KERNEL_KINDS:
+        if part in name:
+            return kind
+    return name[:48]
+
+
+def _device_profile(torch, fn, n=2):
+    """Device time of `n` calls of `fn` by kind of kernel (the CUDA
+    kernels `torch.profiler` traced, named by KERNEL_KINDS). -> (device
+    ms a call, [(kind, ms a call)] of the five largest), or (None, [])
+    when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kinds = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kind = _kernel_kind(e.name)
+            kinds[kind] = kinds.get(kind, 0.0) + \
+                e.device_time_total / 1e3 / n
+    total = sum(kinds.values())
+    return (total or None), sorted(kinds.items(), key=lambda r: -r[1])[:5]
+
+
+def _decode_leaves(lg, ent):
+    """(name, what decode wrote, by rows): the last logits (each request's
+    row) and each cache leaf, k/v in their first SERVE_T slots."""
+    return (("logits", lg, True),
+            *((n, ent[n][:, :, :SERVE_T] if n in ("k", "v") else ent[n],
+               False) for n in ent))
+
+
+def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
+    """One model at full width and full depth, weights from a seed on the
+    card: prefill (`logits_fn` over prefill_b prompts of prefill_32k's
+    32768 tokens, timed, its caches shaped as `init_cache`'s first 32768
+    slots), the decode check (SERVE_T teacher-forced tokens through
+    `decode_step` from an empty `init_cache(B, Smax)`, the last logits
+    and the caches decode wrote held against `logits_fn` over the same
+    tokens: in fp32, the first fp32_b requests, at DECODE_FP32_TOL; in
+    bf16, all decode_b, at DECODE_BF16_K times the bf16 prefill's
+    distance from the fp32 prefill), then SERVE_TIMED greedy steps timed
+    at the full Smax, beside the step's bound: the weights it reads (the
+    embedding only in its looked-up rows when the head is untied), the
+    cache read once, what it writes (one k/v slot a layer, or the whole
+    SSM state), at the HBM rate. -> the run's numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.core.treebytes import leaf_arrays, tree_unflatten
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import FLASH_THRESHOLD
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    V = cfg.vocab_size
+    nbytes = lambda t: t.numel() * t.element_size()      # noqa: E731
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    weight_bytes = sum(nbytes(t) for t in leaf_arrays(params))
+    gen = torch.Generator(dev).manual_seed(1)
+
+    def tokens(b, s):
+        return torch.randint(0, V, (b, s), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    # 1. prefill, after a warm-up at the flash threshold (the same kernels
+    # and matmul routes, at 1/16 of the length)
+    S = INPUT_SHAPES["prefill_32k"].seq_len
+    M.logits_fn(cfg, params, {"tokens": tokens(1, FLASH_THRESHOLD)})
+    prompt = tokens(prefill_b, S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = M.logits_fn(cfg, params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    shapes = {n: (tuple(t.shape), t.dtype)
+              for n, t in caches["pos0"].items()}
+    want = {n: (tuple(t.shape), t.dtype) for n, t in
+            M.init_cache(cfg, prefill_b, S, "meta")["entries"]["pos0"]
+            .items()}
+    prefill_cache = sum(nbytes(t) for t in caches["pos0"].values())
+    if shapes != want or tuple(logits.shape) != (prefill_b, 1, V) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} prefill: caches {shapes}, want "
+                             f"{want}; logits {tuple(logits.shape)}")
+    del logits, caches, prompt
+    torch.cuda.empty_cache()
+
+    # 2. the decode check: fp32 (its first fp32_b rows), then bf16
+    Smax = INPUT_SHAPES[decode_shape].seq_len
+    toks = tokens(decode_b, SERVE_T)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = tree_unflatten(params, [t.float() for t in leaf_arrays(params)])
+    l32, c32 = M.logits_fn(cfg32, p32, {"tokens": toks})
+    tol32 = DECODE_FP32_TOL[cfg.family]
+    cache = M.init_cache(cfg32, fp32_b, Smax, dev)
+    for t in range(SERVE_T):
+        lg, cache = M.decode_step(cfg32, p32, cache, toks[:fp32_b, t:t + 1])
+    ent = cache["entries"]["pos0"]
+    held = []
+    for name, got, rows in _decode_leaves(lg, ent):
+        want = (l32 if name == "logits" else c32["pos0"][name])[
+            (slice(fp32_b),) if name == "logits" else
+            (slice(None), slice(fp32_b))]
+        e = _rel(got, want, rows)
+        ok = math.isfinite(e) and e <= tol32
+        held.append({"leaf": name, "type": "float32", "rows": fp32_b,
+                     "decode_vs_prefill": e, "bound": tol32, "held": ok})
+        print(f"{arch} decode check fp32 {name} ({fp32_b} of {decode_b} "
+              f"rows): ||decode - prefill|| / ||prefill|| {e:.3e} (bound "
+              f"{tol32:g})")
+    if int(cache["index"]) != SERVE_T:
+        held.append({"leaf": "index", "held": False})
+    # `got` views the fp32 cache: drop it too, or its last leaf stays
+    del p32, cache, ent, lg, got, want
+    torch.cuda.empty_cache()
+    l16, c16 = M.logits_fn(cfg, params, {"tokens": toks})
+    cache = M.init_cache(cfg, decode_b, Smax, dev)
+    for t in range(SERVE_T):
+        lg, cache = M.decode_step(cfg, params, cache, toks[:, t:t + 1])
+    ent = cache["entries"]["pos0"]
+    for name, got, rows in _decode_leaves(lg, ent):
+        pre, yard = ((l16, l32) if name == "logits"
+                     else (c16["pos0"][name], c32["pos0"][name]))
+        e, y = _rel(got, pre, rows), _rel(pre, yard, rows)
+        ok = math.isfinite(e) and e <= DECODE_BF16_K * y
+        held.append({"leaf": name, "type": "bfloat16", "rows": decode_b,
+                     "decode_vs_prefill": e, "bf16_vs_fp32": y, "held": ok})
+        print(f"{arch} decode check bf16 {name}: ||decode - prefill|| / "
+              f"||prefill|| {e:.3e}, bf16 prefill vs fp32 {y:.3e}: "
+              + (f"{e / y:.3f}" if y else "-") + " of the bf16 spread "
+              f"(bound {DECODE_BF16_K})")
+    if not all(h["held"] for h in held) or int(cache["index"]) != SERVE_T:
+        raise AssertionError(f"{arch}: decode departs from logits_fn: "
+                             f"{held}, index {int(cache['index'])}")
+    del l32, c32, l16, c16
+
+    # 3. decode steps at the full Smax (each scores every slot)
+    tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_TIMED):
+        lg, cache = M.decode_step(cfg, params, cache, tok)
+        tok = lg.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / SERVE_TIMED * 1e3
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{arch}: decode logits are not finite")
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms, top = _device_profile(
+        torch, lambda: M.decode_step(cfg, params, cache, tok))
+    print(f"{arch} decode step on the device: "
+          + ("not measured (no device time traced)" if dev_ms is None else
+             f"{dev_ms:.3f} ms of kernels ({dev_ms / step_ms:.3f} of the "
+             f"step's wall); largest: "
+             + "; ".join(f"{k} {t:.3f} ms" for k, t in top)))
+
+    # 4. the step's bound
+    cache_bytes = sum(nbytes(t) for t in ent.values())
+    el = params["embed"].element_size()
+    read = weight_bytes + cache_bytes
+    if "lm_head" in params:          # the table itself only in B rows
+        read -= nbytes(params["embed"]) - decode_b * cfg.d_model * el
+    written = decode_b * V * el + (
+        cache_bytes if "h" in ent else
+        2 * cfg.num_layers * decode_b * cfg.num_kv_heads * cfg.head_dim * el)
+    bound_ms = (read + written) / HBM_BYTES_PER_S * 1e3
+    run = {"arch": arch, "layers": cfg.num_layers,
+           "weight_bytes": weight_bytes, "prefill_batch": prefill_b,
+           "prefill_seq": S, "prefill_cache_bytes": prefill_cache,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": prefill_b * S / prefill_s,
+           "decode_shape": decode_shape, "decode_batch": decode_b,
+           "decode_smax": Smax, "decode_cache_bytes": cache_bytes,
+           "decode_ms": step_ms,
+           "decode_tokens_per_s": decode_b * 1e3 / step_ms,
+           "decode_bound_ms": bound_ms,
+           "decode_bound_bytes": read + written, "peak_bytes": peak,
+           "decode_device_ms": dev_ms,
+           "decode_top_kernels": [[k, t] for k, t in top],
+           "decode_check": held}
+    print(f"{arch} serving ({cfg.num_layers} layers, weights {weight_bytes}"
+          f" B): prefill {prefill_b}x{S} {prefill_s:.3f} s, "
+          f"{run['prefill_tokens_per_s']:.1f} tokens/s (caches "
+          f"{prefill_cache} B); decode {decode_shape} B={decode_b} "
+          f"Smax={Smax} (cache {cache_bytes} B): {step_ms:.3f} ms a step, "
+          f"{run['decode_tokens_per_s']:.1f} tokens/s, bound "
+          f"{bound_ms:.3f} ms ({read + written} B at 3.35 TB/s), "
+          f"{step_ms / bound_ms:.2f}x bound; peak device memory "
+          f"{peak / 1e9:.3f} GB")
+    del params, cache, ent, lg, tok, toks
+    torch.cuda.empty_cache()
+    return run
+
+
+def _subprocess(cmd, check_out=None):
+    """Run one of the port's entry points from the checkout; fail on a
+    non-zero exit (or without `check_out` in its stderr)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *cmd], cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=600)
+    print(f"$ python -m {' '.join(cmd)}: rc {r.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in (r.stdout + r.stderr).strip().splitlines()[-6:]:
+        print(f"  {line}")
+    if r.returncode != 0 or (check_out and check_out not in r.stderr):
+        raise AssertionError(f"python -m {' '.join(cmd)} failed")
+
+
+def serving_path(torch):
+    """Phase 8: SERVE_RUNS (counts set to 0 before, read after: every
+    layer's prefill launches swa_flash or ssd_scan, the decode none and no
+    backward), then the serving example on the card and the strict
+    analyzer over the port, as subprocesses. -> (launches, runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    runs = [_serve_run(torch, *r) for r in SERVE_RUNS]
+    launches = launch_counts()
+    # per layer: the warm-up and the prefill (swa_flash: S >= the flash
+    # threshold; ssd_scan: every length), and ssd_scan in the check's
+    # fp32 and bf16 prefills of SERVE_T tokens
+    want = dict.fromkeys(launches, 0)
+    for arch, *_ in SERVE_RUNS:
+        cfg = get_config(arch)
+        if cfg.family == "ssm":
+            want["ssd_scan"] += 4 * cfg.num_layers
+        else:
+            want["swa_flash"] += 2 * cfg.num_layers
+    print(f"{SERVING} launches: {json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(f"{SERVING}: launches {launches}, want {want}")
+    _subprocess(["repro_torch.examples.serve", "--device", "cuda"])
+    _subprocess(["repro_torch.analyze", "--strict", "src/repro_torch"],
+                check_out="analyze: 0 findings")
+    return launches, runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1866,7 +2371,10 @@ def main() -> int:
     by_path[DELTA], delta_fold_crc = delta_path(torch)
     torch.cuda.empty_cache()
     by_path[STAGES] = stage_path(torch)
-    phase("8 summary")
+    torch.cuda.empty_cache()
+    phase("8 serving at full width")
+    by_path[SERVING], serving = serving_path(torch)
+    phase("9 summary")
     own = frows[0]    # the path's instance: the fused own bucket
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     # bf16 (the path's type): tensor-core kernels; fp32: CUDA-core ones
@@ -1889,7 +2397,7 @@ def main() -> int:
                {"name": "swa_flash", "route": "cuda", "source": swa_src,
                 "fp32_source": swa_fp32,
                 "replaces": "src/repro/kernels/swa_attention.py:81",
-                **swa["swa_flash"]},
+                **swa["swa_flash"], "serving_cases": swa["serving_cases"]},
                {"name": "swa_flash_bwd", "route": "cuda", "source": swa_src,
                 "fp32_source": swa_fp32,
                 "replaces": "src/repro/models/flash.py:28 (the gradient "
@@ -1911,6 +2419,7 @@ def main() -> int:
         # an XOR reduction along an axis
         k.setdefault("library_ms", None)
         k["ok"] = True
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1919,5 +2428,58 @@ def main() -> int:
     return 0
 
 
+STEP_TIME_RUN = ("import json, sys\n"
+                 "from repro_torch.launch import train\n"
+                 "r = train.run(sys.argv[1:])\n"
+                 "print('STEP_SECONDS ' + json.dumps(r['step_seconds']))\n")
+
+
+def _step_seconds(root, arch, seq, batch, layers, steps):
+    """One phase-4 path's step seconds under the trainer of the checkout
+    at `root`, with no checkpointing (`--backend null`), in a new
+    process on the card."""
+    cut = [] if layers is None else ["--layers", str(layers)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    with tempfile.TemporaryDirectory(prefix="step-time-") as ckpt:
+        r = subprocess.run(
+            [sys.executable, "-c", STEP_TIME_RUN, "--arch", arch, "--seq",
+             str(seq), "--batch", str(batch), *cut, "--steps", str(steps),
+             "--backend", "null", "--device", "cuda", "--ckpt-dir", ckpt],
+            cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise SystemExit(f"{root} {arch}: rc {r.returncode}\n"
+                         f"{r.stderr[-3000:]}")
+    line = next(x for x in r.stdout.splitlines()
+                if x.startswith("STEP_SECONDS "))
+    return json.loads(line.split(" ", 1)[1])
+
+
+def step_time(roots, steps=12):
+    """`python3 chip_smoke.py --step-time ROOT [ROOT ...]`: the training
+    step with no snapshot flight, to tell a change in the model code
+    from the flights' interference. For each checkout ROOT in the order
+    given (parent, change, change, parent shows drift on the card), each
+    PATHS entry through that checkout's trainer (`_step_seconds`); prints
+    the step seconds and their median past the first (the warm-up), then
+    a JSON line of the medians and the card's name and power limit."""
+    medians = []
+    for root in roots:
+        row = {}
+        for arch, seq, batch, layers, _ in PATHS:
+            s = _step_seconds(os.path.abspath(root), arch, seq, batch,
+                              layers, steps)
+            row[arch] = statistics.median(s[1:])
+            print(f"{root} {arch} ({batch}x{seq}, "
+                  f"{'full depth' if layers is None else f'{layers} layers'}"
+                  f"): median step past the first {row[arch]:.4f} s; "
+                  + json.dumps([round(x, 4) for x in s]), flush=True)
+        medians.append({"root": root, "median_step_s": row})
+    print(json.dumps({"train_step_medians": medians}))
+    print(smi_line())
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--step-time"]:
+        sys.exit(step_time(sys.argv[2:]))
     sys.exit(main())

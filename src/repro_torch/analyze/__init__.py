@@ -1,3 +1,5 @@
-"""Concurrency & protocol analysis the SMP runs with: the lock-order
-tracer (`lockgraph`) and the SMP protocol validator (`protocol`).
-Stdlib-only, like the modules that import it."""
+"""Concurrency & protocol analysis: the AST lint rules (`lint`), the
+lock-order tracer the SMP runs with (`lockgraph`), the SMP protocol model
+checker and validator (`protocol`), and the gate over all three, `python
+-m repro_torch.analyze` (`cli`). Stdlib-only, like the modules that
+import it."""

@@ -62,7 +62,7 @@ def resolve_device(name: str):
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available: repro_torch trains on the card; "
+            "no CUDA device is available: repro_torch runs on the card; "
             "pass --device cpu to run on the CPU instead")
     return dev
 

@@ -1,10 +1,12 @@
 """GQA attention with RoPE, optional qk-norm and sliding windows.
 
-The counterpart of `repro/models/attention.py`'s training path: the
-masked softmax below `FLASH_THRESHOLD`, flash attention at and above it
-(or for any length when a static band is asked for), through
+The counterpart of `repro/models/attention.py`: the masked softmax below
+`FLASH_THRESHOLD`, flash attention at and above it (or for any length
+when a static band is asked for), through
 `kernels.swa_attention.swa_flash`: the CUDA kernels on the card, their
-plain version on the CPU.  Decode (serving) is not ported yet.
+plain version on the CPU.  Decode (`attention_decode`) attends one query
+against a preallocated KV cache, in plain PyTorch as the reference's
+plain `jnp` (no Pallas kernel there).
 """
 from __future__ import annotations
 
@@ -71,13 +73,14 @@ def _mix(scores, v, cfg):
 
 
 def attention(p, cfg, x, *, window, positions, band=None):
-    """Full-sequence attention (training).
+    """Full-sequence attention (training / prefill).
 
     window: int (FULL_WINDOW for global layers).
     positions: (S,) integer tensor (contiguous from 0 for the flash path).
     band: the static window of `cfg.banded_attention`, as the reference
     takes it: it sends any length down the flash path. There the window
     is always static, so out-of-band KV tiles are skipped either way.
+    Returns (out, (k, v)) so prefill can populate the cache.
     """
     q, k, v = _project_qkv(p, cfg, x, positions)
     B, S = x.shape[0], x.shape[1]
@@ -85,7 +88,7 @@ def attention(p, cfg, x, *, window, positions, band=None):
     if S >= FLASH_THRESHOLD or band is not None:
         qg = q.reshape(B, S, KV, H // KV, hd)
         o = swa_flash(qg, k, v, window=window, causal=cfg.causal)
-        return o.reshape(B, S, H * hd) @ p["wo"]
+        return o.reshape(B, S, H * hd) @ p["wo"], (k, v)
     qpos = positions[:, None]
     kpos = positions[None, :]
     ok = (kpos - qpos < 1) if cfg.causal else \
@@ -94,4 +97,34 @@ def attention(p, cfg, x, *, window, positions, band=None):
     scores = _gqa_scores(q, k, cfg)
     scores = torch.where(ok[None, None, None], scores,
                          torch.full((), NEG_INF, device=x.device))
-    return _mix(scores, v, cfg) @ p["wo"]
+    return _mix(scores, v, cfg) @ p["wo"], (k, v)
+
+
+def attention_decode(p, cfg, x, cache_k, cache_v, *, window, index):
+    """One-token decode. x: (B,1,D); cache_k/v: (B,Smax,KV,hd); index: 0-d
+    integer tensor, the token's position.
+
+    Writes the new k/v into the caches at slot `index % Smax`, in place,
+    and attends over positions <= index within the sliding window.
+    Returns (out, cache_k, cache_v): the caches are the tensors given,
+    holding the values of the reference's functional update.
+    """
+    pos = index.reshape(1)
+    q, k1, v1 = _project_qkv(p, cfg, x, pos)
+    Smax = cache_k.shape[1]
+    # Ring-buffer write: slot = index % Smax. When Smax covers the full
+    # sequence this is a plain positional write; when the cache is
+    # window-sized (window_kv_cache) old entries are overwritten.
+    slot = torch.remainder(pos, Smax).long()
+    cache_k.index_copy_(1, slot, k1.to(cache_k.dtype))
+    cache_v.index_copy_(1, slot, v1.to(cache_v.dtype))
+    j = torch.arange(Smax, dtype=index.dtype, device=x.device)
+    # true position of slot j; fmod truncates as the reference's lax.rem,
+    # so a slot not yet written gets a position above index
+    kpos = index - torch.fmod(index - j, Smax)
+    ok = (kpos >= 0) & (kpos <= index) & (index - kpos < window)
+    scores = _gqa_scores(q, cache_k, cfg)                # (B,KV,G,1,Smax)
+    scores = torch.where(ok[None, None, None, None], scores,
+                         torch.full((), NEG_INF, device=x.device))
+    out = _mix(scores, cache_v, cfg) @ p["wo"]
+    return out, cache_k, cache_v

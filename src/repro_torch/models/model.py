@@ -1,10 +1,15 @@
-"""Model assembly: init / forward for the dense and SSM families.
+"""Model assembly: init / forward / prefill / decode for the dense and SSM
+families.
 
 The counterpart of `repro/models/model.py`.  Parameters keep the
 reference's stacked layout — `params["blocks"]["pos0"][...]` leaves of
 shape (num_layers, ...) — so the flat byte streams of the two packages
-line up leaf for leaf.  The layer loop unbinds the stacks once per
-forward; `cfg.remat` maps to `torch.utils.checkpoint` per layer.
+line up leaf for leaf; the decode cache keeps it too
+(`cache["entries"]["pos0"]["k"]` of shape (num_layers, B, S, KV, hd)).
+The layer loop unbinds the stacks once per call; `cfg.remat` maps to
+`torch.utils.checkpoint` per layer.  Serving (`logits_fn`, `init_cache`,
+`decode_step`) runs under `torch.inference_mode()` and writes each
+step's k/v (or SSM state) into the cache in place.
 """
 from __future__ import annotations
 
@@ -13,12 +18,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core.treebytes import leaf_arrays, tree_unflatten
-from repro_torch.models.attention import attention, init_attn
+from repro_torch.models.attention import (
+    attention, attention_decode, init_attn,
+)
 from repro_torch.models.layers import (
     FULL_WINDOW, chunked_cross_entropy, cross_entropy, dense_init, dtype_of,
     init_mlp, init_rms, mlp, pdtype_of, rms_norm,
 )
-from repro_torch.models.ssm import init_ssm, ssm_block
+from repro_torch.models.ssm import init_ssm, ssm_block, ssm_decode
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -100,38 +107,156 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device):
     return params
 
 
-def _layer(cfg, p, h, positions, window, band):
-    if cfg.layer_kind(0) == ATTN:
-        h = h + attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
-                          window=window, positions=positions, band=band)
-    else:
-        h = h + ssm_block(p["mix"], cfg, rms_norm(h, p["ln1"]),
-                          chunk=cfg.ssd_chunk)[0]
+def _ffn(cfg, p, h):
     # d_ff == 0 (Mamba2): no FFN; the reference adds zeros
     if cfg.d_ff:
         h = h + mlp(p["ffn"], rms_norm(h, p["ln2"]))
     return h
 
 
-def forward(cfg: ModelConfig, params, batch, *, remat=None):
-    """Full-sequence forward. Returns (loss, aux_dict)."""
-    check_supported(cfg)
-    h = params["embed"][batch["tokens"].long()].to(dtype_of(cfg))
-    labels = batch["labels"]
+def _layer(cfg, p, h, positions, window, band):
+    """One layer on the full sequence. -> (h, cache entry): the layer's
+    (k, v), or its SSM (conv_state, h_final)."""
+    if cfg.layer_kind(0) == ATTN:
+        a, entry = attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
+                             window=window, positions=positions, band=band)
+    else:
+        a, entry = ssm_block(p["mix"], cfg, rms_norm(h, p["ln1"]),
+                             chunk=cfg.ssd_chunk)
+    return _ffn(cfg, p, h + a), entry
+
+
+def _cache_names(cfg):
+    return ("k", "v") if cfg.layer_kind(0) == ATTN else ("conv", "h")
+
+
+def _run_blocks(cfg, params, h, *, collect_cache, remat):
+    """The layer stack on the full sequence. -> (h, caches): with
+    `collect_cache`, {"pos0": {name: (num_layers, ...)}}, each layer's
+    entry written into a stack allocated at the first layer (so the
+    stacks never sit beside a second copy), else {}."""
     positions = torch.arange(h.shape[1], device=h.device)
-    remat = cfg.remat if remat is None else remat
     windows = window_array(cfg)
+    stacks = {}
     for i, p in enumerate(_unstack(params["blocks"]["pos0"],
                                    cfg.num_layers)):
         args = (cfg, p, h, positions, windows[i], _band(cfg, i))
         if remat:
-            h = checkpoint(_layer, *args, use_reentrant=False)
+            h, entry = checkpoint(_layer, *args, use_reentrant=False)
         else:
-            h = _layer(*args)
+            h, entry = _layer(*args)
+        if not collect_cache:
+            continue
+        for name, t in zip(_cache_names(cfg), entry):
+            if i == 0:
+                stacks[name] = t.new_empty((cfg.num_layers, *t.shape))
+            stacks[name][i] = t
+    return h, ({"pos0": stacks} if collect_cache else {})
+
+
+def _embed(cfg, params, tokens):
+    return params["embed"][tokens.long()].to(dtype_of(cfg))
+
+
+def _lm_head_w(params):
+    return params["lm_head"] if "lm_head" in params else params["embed"].T
+
+
+def forward(cfg: ModelConfig, params, batch, *, collect_cache=False,
+            remat=None):
+    """Full-sequence forward. Returns (loss, aux_dict); with
+    `collect_cache`, aux_dict["cache"] holds the per-layer caches."""
+    check_supported(cfg)
+    h = _embed(cfg, params, batch["tokens"])
+    labels = batch["labels"]
+    remat = cfg.remat if remat is None else remat
+    h, caches = _run_blocks(cfg, params, h, collect_cache=collect_cache,
+                            remat=remat)
     h = rms_norm(h, params["final_norm"])
-    w_out = params["lm_head"] if "lm_head" in params else params["embed"].T
+    w_out = _lm_head_w(params)
     if cfg.chunked_ce:
         loss = chunked_cross_entropy(h, w_out, labels, cfg.chunked_ce)
     else:
         loss = cross_entropy(h @ w_out, labels)
-    return loss, {"loss": loss}
+    out = {"loss": loss}
+    if collect_cache:
+        out["cache"] = caches
+    return loss, out
+
+
+# ===================================================================== serve
+@torch.inference_mode()
+def logits_fn(cfg: ModelConfig, params, batch):
+    """Last-position logits (B, 1, V) and the per-layer caches, stacked
+    like the params (prefill)."""
+    check_supported(cfg)
+    h, caches = _run_blocks(cfg, params, _embed(cfg, params, batch["tokens"]),
+                            collect_cache=True, remat=False)
+    h = rms_norm(h[:, -1:, :], params["final_norm"])
+    return h @ _lm_head_w(params), caches
+
+
+def cache_len(cfg: ModelConfig, max_seq: int) -> int:
+    """Slots of each attention layer's cache. With `window_kv_cache` a
+    stack position gets a window-sized ring only when every layer stacked
+    there has a window; any global layer keeps all `max_seq` slots. (The
+    reference sizes the ring by the window of the position's first
+    layer, so its global layers of gemma3 get the local layers' ring and
+    decode departs from the forward; ROADMAP §3.)"""
+    windows = [cfg.layer_window(i) for i in range(cfg.num_layers)]
+    if cfg.window_kv_cache and None not in windows:
+        return min(max_seq, max(windows))
+    return max_seq
+
+
+@torch.inference_mode()
+def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, device):
+    """Zeroed decode cache, stacked over the layers: {"entries": {"pos0":
+    {"k", "v"} or {"conv", "h"}}, "index": 0-d int32}."""
+    check_supported(cfg)
+    dt, L = dtype_of(cfg), cfg.num_layers
+    if cfg.layer_kind(0) == ATTN:
+        shape = (L, batch_size, cache_len(cfg, max_seq), cfg.num_kv_heads,
+                 cfg.head_dim)
+        entry = {"k": torch.zeros(shape, dtype=dt, device=device),
+                 "v": torch.zeros(shape, dtype=dt, device=device)}
+    else:
+        ch = cfg.d_inner + 2 * cfg.ssm_state
+        entry = {
+            "conv": torch.zeros((L, batch_size, cfg.ssm_conv_width - 1, ch),
+                                dtype=dt, device=device),
+            "h": torch.zeros((L, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
+                              cfg.ssm_state), dtype=torch.float32,
+                             device=device),
+        }
+    return {"entries": {"pos0": entry},
+            "index": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _layer_decode(cfg, p, h, window, index, entry):
+    """One-token step against this layer's cache slice (written in
+    place)."""
+    if cfg.layer_kind(0) == ATTN:
+        a = attention_decode(p["mix"], cfg, rms_norm(h, p["ln1"]),
+                             entry["k"], entry["v"], window=window,
+                             index=index)[0]
+    else:
+        a = ssm_decode(p["mix"], cfg, rms_norm(h, p["ln1"]), entry["conv"],
+                       entry["h"])[0]
+    return _ffn(cfg, p, h + a)
+
+
+@torch.inference_mode()
+def decode_step(cfg: ModelConfig, params, cache, tokens):
+    """One decode step. tokens: (B, 1) integer -> (logits (B,1,V), cache):
+    the cache given, its entries written in place, with `index + 1`."""
+    check_supported(cfg)
+    L, index = cfg.num_layers, cache["index"]
+    h = _embed(cfg, params, tokens)
+    windows = window_array(cfg)
+    for i, (p, e) in enumerate(zip(_unstack(params["blocks"]["pos0"], L),
+                                   _unstack(cache["entries"]["pos0"], L))):
+        h = _layer_decode(cfg, p, h, windows[i], index, e)
+    h = rms_norm(h, params["final_norm"])
+    return h @ _lm_head_w(params), {"entries": cache["entries"],
+                                    "index": index + 1}

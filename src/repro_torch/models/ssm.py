@@ -1,10 +1,11 @@
-"""Mamba2 (SSD, state-space duality) block, training path.
+"""Mamba2 (SSD, state-space duality) block.
 
 The counterpart of `repro/models/ssm.py`: the same parameters, casts and
-math. The SSD core is `kernels.ssd_scan.ssd_scan`, whose route the
-inputs' device decides (the plain chunked scan on the CPU, the CUDA
-kernels on the card). Decode (`ssm_decode`, `_conv_step`) belongs to
-serving and is not ported yet.
+math. Training and prefill run the SSD core `kernels.ssd_scan.ssd_scan`,
+whose route the inputs' device decides (the plain chunked scan on the
+CPU, the CUDA kernels on the card); decode (`ssm_decode`) takes the
+O(1)-state recurrent step in plain PyTorch, as the reference's plain
+`jnp`.
 """
 from __future__ import annotations
 
@@ -46,6 +47,14 @@ def _conv_full(p, xbc):
     out = sum(pad[:, i:i + xbc.shape[1], :] * p["conv_w"][i]
               for i in range(W))
     return F.silu(out + p["conv_b"])
+
+
+def _conv_step(p, xbc1, conv_state):
+    """xbc1: (B, ch) current input; conv_state: (B, W-1, ch).
+    -> (silu(conv), the new state (B, W-1, ch), a view of the window)."""
+    window = torch.cat([conv_state, xbc1[:, None, :]], dim=1)   # (B,W,ch)
+    out = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
+    return F.silu(out), window[:, 1:, :]
 
 
 def _softplus(x):
@@ -97,3 +106,28 @@ def ssm_block(p, cfg, x, h0=None, chunk=DEFAULT_CHUNK):
     y = rms_norm(y * F.silu(z), p["gate_norm"])
     out = y @ p["out_proj"]
     return out, (conv_state.to(x.dtype), h_final)
+
+
+def ssm_decode(p, cfg, x, conv_state, h):
+    """One-token step. x: (B,1,D); conv_state: (B,W-1,ch); h: (B,H,P,N)
+    float32. Writes the new conv state and h into the tensors given, in
+    place (the reference's functional update, value for value), and
+    returns (out (B,1,D), conv_state, h)."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    B = x.shape[0]
+    z, xbc, dt = _split_proj(p, cfg, x[:, 0, :])
+    xbc, new_conv = _conv_step(p, xbc, conv_state)
+    conv_state.copy_(new_conv)
+    xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
+    xs = xs.reshape(B, H, P)
+    A = -torch.exp(p["A_log"])
+    dtp = _softplus(dt.float() + p["dt_bias"])                    # (B,H)
+    decay = torch.exp(dtp * A)                                    # (B,H)
+    u = xs.float() * dtp[..., None]
+    h.mul_(decay[:, :, None, None]).addcmul_(u[..., None],
+                                             Bm.float()[:, None, None, :])
+    y = torch.einsum("bhpm,bm->bhp", h, Cm.float())
+    y = y + p["D_skip"][None, :, None] * xs.float()
+    y = y.reshape(B, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["gate_norm"])
+    return (y @ p["out_proj"])[:, None, :], conv_state, h

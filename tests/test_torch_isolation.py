@@ -26,6 +26,9 @@ def test_import_every_module_leaves_jax_out():
         " 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) > 40, mods\n"
+        "for m in ('repro_torch.examples.serve', 'repro_torch.analyze.cli',"
+        " 'repro_torch.analyze.lint', 'repro_torch.analyze.__main__'):\n"
+        "    assert m in mods, m\n"
         "assert 'jax' not in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'repro' or "
         "m.startswith('repro.')]\n"
@@ -77,3 +80,20 @@ def test_train_without_device_raises_on_a_host_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         train.main(["--arch", "opt-125m", "--reduced", "--steps", "1"])
+
+
+def test_serve_without_device_raises_on_a_host_without_cuda(monkeypatch):
+    import torch
+
+    from repro_torch.examples import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main([])
+
+
+def test_serve_example_runs_on_the_cpu(capsys):
+    from repro_torch.examples import serve
+    serve.main(["--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("served batch=4: generated 24 tokens/request")
+    assert out[1].startswith("sample: [")
