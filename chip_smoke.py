@@ -119,8 +119,27 @@ Phases, each printed as it ends; any failure exits non-zero:
      launch swa_flash and ssd_scan in every layer; then `python -m
      repro_torch.examples.serve --device cuda` and `python -m
      repro_torch.analyze --strict src/repro_torch` as subprocesses;
-  9. a `serving` and a `kernels` JSON line, the card's name and power
-     limit, and as the last line {"ok": true, "device": {...}}.
+  9. distribution and the dry-run: (a) `repro_torch.launch.dryrun` on
+     the production 16x16 mesh for DRY_PAIRS (one chip's sharded fake
+     program: FLOPs, bytes, collectives, argument and peak bytes, all
+     predictions), in a process of its own; (b) phase 8's three prefill
+     calls dry-run on a (1, 1) mesh, each predicted peak held within
+     PEAK_RATIO of the prefill's measured peak
+     (torch.cuda.max_memory_allocated, reset just before it, less the
+     bytes live before it other than its arguments), the roofline time
+     printed beside the measured seconds; (c) on a real one-rank NCCL
+     group, a (1, 1) DeviceMesh: DTENSOR_RUNS' forward and backward
+     with the params as DTensors, the loss and every gradient bit-equal
+     to the plain tensors' (counts set to 0 before each run: starcoder2's
+     swa_flash launches through its custom op's sharding rule); (d)
+     reshard-on-restore: full-width opt-125m's state snapshotted by an SG
+     of 4, restored for each coordinate of a (data 2, model 2) mesh
+     through `RestoreTarget(shardings=state_specs(...), mesh, coord)`,
+     every byte of the coordinate's ranges equal to the saved byte and
+     the loader's plan covering exactly those ranges;
+ 10. a `serving`, a `distribution` and a `kernels` JSON line, the card's
+     name and power limit, and as the last line {"ok": true, "device":
+     {...}}.
 
 `python3 chip_smoke.py --step-time ROOT [ROOT ...]` instead times the
 phase-4 paths' training steps with no checkpointing under each checkout
@@ -222,6 +241,36 @@ DECODE_BF16_K = 2.0
 # kernel's bf16x3 products round them; the bounds are about ten times
 # that (tests/test_torch_decode.py::test_fp32_decode_is_within_the_chip_bound)
 DECODE_FP32_TOL = {"dense": 1e-4, "ssm": 1e-3}
+# phase 9: distribution and the dry-run. (a) the dry-run on the production
+# 16x16 mesh for these pairs (one chip's sharded fake program, no device);
+# (b) phase 8's prefill calls dry-run on a (1, 1) mesh, the predicted peak
+# held to the measured one within PEAK_RATIO; (c) DTENSOR_RUNS forward and
+# backward with the params as DTensors on a real one-rank NCCL group,
+# bitwise against the plain tensors; (d) reshard-on-restore: opt-125m's
+# state snapshotted by an SG of 4, restored for each coordinate of a
+# RESHARD_MESH (data, model) mesh through its sharding
+DIST = "distribution"
+DRY_PAIRS = [("starcoder2-3b", "train_4k"), ("starcoder2-3b", "prefill_32k"),
+             ("starcoder2-3b", "decode_32k"), ("starcoder2-3b", "long_500k"),
+             ("gemma3-4b", "decode_32k"), ("mamba2-130m", "train_4k")]
+PEAK_RATIO = (0.85, 1.15)
+DTENSOR_RUNS = [("opt-125m", 256, 2, None), ("starcoder2-3b", 16384, 1, 4)]
+RESHARD_ARCH, RESHARD_MESH = "opt-125m", (2, 2)
+DRY_RUN = (
+    "import json, sys\n"
+    "from repro_torch.configs.base import INPUT_SHAPES, InputShape\n"
+    "from repro_torch.launch import dryrun as DR\n"
+    "from repro_torch.launch.mesh import make_mesh\n"
+    "pairs, prefills = json.loads(sys.argv[1]), json.loads(sys.argv[2])\n"
+    "out = {'production': [DR.run_pair(a, s, multi_pod=False)\n"
+    "                      for a, s in pairs], 'prefill': []}\n"
+    "mesh = make_mesh((1, 1), ('data', 'model'))\n"
+    "for arch, rows, seq in prefills:\n"
+    "    name = f'serve_{rows}x{seq}'\n"
+    "    INPUT_SHAPES[name] = InputShape(name, seq, rows, 'prefill')\n"
+    "    out['prefill'].append(DR.run_pair(arch, name, multi_pod=False,\n"
+    "                                      mesh=mesh))\n"
+    "print('DRYRUN_JSON ' + json.dumps(out))\n")
 # the swa_flash shapes: (label, B, S, KV, G, hd, window, causal, on path:
 # True for the training path's shape, fwd and bwd; SERVING for a layer
 # kind of the serving path's prefill at S 32768, forward only: timed at
@@ -638,18 +687,6 @@ def _ssd_inputs(torch, gen, shape, with_h0):
             "dy": rn(B, S, H, P), "dhf": rn(B, H, P, N)}
 
 
-def ssd_flops(B, S, H, P, N, Q):
-    """(forward, backward) FLOP of the products the chunked kernels do,
-    one bf16 term each (the split does three): the causal products count
-    the Q (Q + 1) / 2 pairs of a chunk's lower triangle."""
-    nc, tri = S // Q, Q * (Q + 1) // 2
-    state = nc * H * 2 * P * N * Q          # st, X, du_state, D, dC/dB heads
-    causal = nc * H * 2 * P * tri           # (S o L) u, dy u^T, (S o L)^T dy
-    cb = nc * 2 * N * tri                   # C B^T, dS B, dS^T C
-    return (B * (2 * state + causal + cb),
-            B * (5 * state + 2 * causal + 3 * cb))
-
-
 def ssd_bytes(B, S, H, P, N, Q):
     """(forward, backward) bytes of the main path's call (no h0, no
     dh_final): each input read once, each output written once, fp32; hs is
@@ -781,7 +818,7 @@ def _ssd_forward_case(torch, K, gen, label, B, S):
                   reps=3, trials=5, hold_cycles=HOLD_CYCLES)
     plain_row_ms = _host_ms(torch, lambda: K.ssd_scan_plain(
         u[:1], a[:1], Bm[:1], Cm[:1], chunk=Q))
-    flops = ssd_flops(B, S, H, P, N, Q)[0]
+    flops = K.ssd_flops(B, S, H, P, N, Q)[0]
     ops_ms = 3 * flops / BF16_FLOPS * 1e3
     bytes_ms = ssd_bytes(B, S, H, P, N, Q)[0] / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
@@ -858,7 +895,7 @@ def check_ssd(torch):
     rows = {}
     for name, ms, plain_ms, flops, nbytes, old_flops in zip(
             ("ssd_scan", "ssd_scan_bwd"), (fwd_ms, bwd_ms),
-            (fwd_plain_ms, bwd_plain_ms), ssd_flops(B, S, H, P, N, Q),
+            (fwd_plain_ms, bwd_plain_ms), K.ssd_flops(B, S, H, P, N, Q),
             ssd_bytes(B, S, H, P, N, Q), (4 * elems, 11 * elems)):
         # bf16x3: three bf16 tensor-core terms for every product
         ops_ms = 3 * flops / BF16_FLOPS * 1e3
@@ -883,14 +920,6 @@ def check_ssd(torch):
               f"{old_bound_ms:.5f} ms ({old_flops / 1e9:.2f} GFLOP at 67 "
               f"TFLOP/s)")
     return rows
-
-
-def band_pairs(S, window, causal):
-    """(query, key) pairs of an S x S attention that the mask lets
-    through: kpos <= qpos if causal, |qpos - kpos| < window."""
-    W = min(window or S, S)
-    below = W * (W + 1) // 2 + (S - W) * W       # 0 <= qpos - kpos < W
-    return below if causal else 2 * below - S
 
 
 def _swa_inputs(torch, gen, B, S, KV, G, hd):
@@ -1156,8 +1185,9 @@ def _serve_batch(arch):
 
 def _swa_bound(B, S, KV, G, hd, window, causal):
     """(bound ms, bound_by, GFLOP) of a bf16 forward call."""
+    from repro_torch.kernels.swa_attention import band_pairs
     heads = B * KV * G
-    flops = 4 * hd * band_pairs(S, window, causal) * heads
+    flops = 4 * hd * band_pairs(S, S, window, causal) * heads
     nbytes = 2 * (2 * B * S * KV * G * hd + 2 * B * S * KV * hd) \
         + 4 * heads * S
     ops_ms = flops / BF16_FLOPS * 1e3
@@ -1288,7 +1318,7 @@ def check_swa(torch):
               + (f"SDPA backend {backend}: fwd {lib_fwd:.4f} ms, bwd "
                  f"{lib_bwd:.4f} ms" if backend else
                  f"SDPA refused ({why}): none"))
-        pairs = band_pairs(S, window, causal)
+        pairs = K.band_pairs(S, S, window, causal)
         heads = B * KV * G
         el = 2                                    # bf16 bytes
         n_q, n_kv = B * S * KV * G * hd, B * S * KV * hd
@@ -2170,10 +2200,17 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
     M.logits_fn(cfg, params, {"tokens": tokens(1, FLASH_THRESHOLD)})
     prompt = tokens(prefill_b, S)
     torch.cuda.synchronize()
+    # the prefill's own peak (phase 9 holds the dry-run's prediction to
+    # it): the live bytes other than its arguments (weights, prompt) are
+    # taken off, and the run's peak so far is kept
+    run_peak = torch.cuda.max_memory_allocated()
+    other = torch.cuda.memory_allocated() - weight_bytes - nbytes(prompt)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits, caches = M.logits_fn(cfg, params, {"tokens": prompt})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated() - other
     shapes = {n: (tuple(t.shape), t.dtype)
               for n, t in caches["pos0"].items()}
     want = {n: (tuple(t.shape), t.dtype) for n, t in
@@ -2247,7 +2284,7 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
     step_ms = (time.perf_counter() - t0) / SERVE_TIMED * 1e3
     if not bool(torch.isfinite(lg).all()):
         raise AssertionError(f"{arch}: decode logits are not finite")
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(run_peak, torch.cuda.max_memory_allocated())
     dev_ms, top = _device_profile(
         torch, lambda: M.decode_step(cfg, params, cache, tok))
     print(f"{arch} decode step on the device: "
@@ -2271,6 +2308,8 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
            "prefill_seq": S, "prefill_cache_bytes": prefill_cache,
            "prefill_s": prefill_s,
            "prefill_tokens_per_s": prefill_b * S / prefill_s,
+           "prefill_peak_bytes": prefill_peak,
+           "prefill_other_bytes": other,
            "decode_shape": decode_shape, "decode_batch": decode_b,
            "decode_smax": Smax, "decode_cache_bytes": cache_bytes,
            "decode_ms": step_ms,
@@ -2339,6 +2378,299 @@ def serving_path(torch):
     return launches, runs
 
 
+def _dry_runs(serving):
+    """9(a) and (b)'s dry-runs in one process of their own (its fake
+    process group never meets phase 9(c)'s real one); prints each pair's
+    line. -> {"production": [record], "prefill": [record]}."""
+    prefills = [[r["arch"], r["prefill_batch"], r["prefill_seq"]]
+                for r in serving]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", DRY_RUN, json.dumps(DRY_PAIRS),
+                        json.dumps(prefills)], cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=900)
+    print(f"dry-run process: rc {r.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in r.stdout.splitlines():
+        if line.startswith("[ok]"):
+            print(f"  {line}")
+    out = [l for l in r.stdout.splitlines() if l.startswith("DRYRUN_JSON ")]
+    if r.returncode != 0 or not out:
+        raise AssertionError(f"dry-run failed:\n{r.stderr[-3000:]}")
+    return json.loads(out[0].split(" ", 1)[1])
+
+
+def _dry_run_checks(dry, serving):
+    """9(a): every production pair a record with FLOPs and argument
+    bytes; (b) each prefill's predicted peak within PEAK_RATIO of phase
+    8's measured one, the roofline time printed beside the measured
+    seconds (no bound). -> [9(b) rows]."""
+    for rec in dry["production"]:
+        mem = rec["memory"]
+        if not (rec["hlo_flops_per_chip"] > 0 and mem["argument_bytes"] > 0
+                and mem["peak_bytes"] >= mem["argument_bytes"]):
+            raise AssertionError(f"dry-run {rec['arch']} x {rec['shape']}: "
+                                 f"{rec}")
+    rows = []
+    for run, rec in zip(serving, dry["prefill"]):
+        pred = rec["memory"]["peak_bytes"]
+        meas = run["prefill_peak_bytes"]
+        roof = max(rec["t_compute_s"], rec["t_memory_s"])
+        row = {"arch": run["arch"], "rows": run["prefill_batch"],
+               "seq": run["prefill_seq"], "predicted_peak_bytes": pred,
+               "measured_peak_bytes": meas, "ratio": pred / meas,
+               "other_live_bytes": run["prefill_other_bytes"],
+               "roofline_s": roof, "t_compute_s": rec["t_compute_s"],
+               "t_memory_s": rec["t_memory_s"],
+               "measured_s": run["prefill_s"]}
+        rows.append(row)
+        print(f"{run['arch']} prefill {run['prefill_batch']}x"
+              f"{run['prefill_seq']}: peak predicted {pred} B, measured "
+              f"{meas} B (torch.cuda.max_memory_allocated less "
+              f"{run['prefill_other_bytes']} B live before it), ratio "
+              f"{pred / meas:.4f}; roofline {roof:.4f} s (compute "
+              f"{rec['t_compute_s']:.4f}, memory {rec['t_memory_s']:.4f}) "
+              f"beside {run['prefill_s']:.4f} s measured")
+        lo, hi = PEAK_RATIO
+        if not lo <= pred / meas <= hi:
+            raise AssertionError(f"{run['arch']}: predicted peak {pred} B "
+                                 f"is {pred / meas:.3f}x the measured "
+                                 f"{meas} B, outside {PEAK_RATIO}")
+    return rows
+
+
+def _dtensor_run(torch, mesh, arch, seq, batch, layers):
+    """One forward and backward with the params (and batch) as DTensors on
+    `mesh`, against the same with plain tensors: the loss and every
+    gradient bit for bit. -> the DTensor run's launch counts."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.treebytes import leaf_arrays, tree_unflatten
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.dist import shardings as SH
+    from repro_torch.dist.api import use_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    cfg = _path_config(arch, layers)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    batch_t = make_batch(cfg, InputShape("dtensor", seq, batch, "train"),
+                         seed=0, device=dev)
+
+    def grads_of(p, b):
+        leaves = [t.detach().requires_grad_(True) for t in leaf_arrays(p)]
+        loss, _ = M.forward(cfg, tree_unflatten(p, leaves), b)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    # deterministic kernels for both runs (the embedding's gradient
+    # accumulates its rows in a fixed order; warn_only: cuBLAS warns)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, grads = grads_of(params, batch_t)
+        p_dt = SH.distribute(params, SH.named(SH.param_specs(cfg, params),
+                                              params, mesh))
+        b_dt = SH.distribute(batch_t, SH.named(
+            SH.batch_specs(cfg, batch_t), batch_t, mesh))
+        reset_launch_counts()
+        with use_mesh(mesh), implicit_replication():
+            loss_d, grads_d = grads_of(p_dt, b_dt)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = torch.equal(loss_d.to_local(), loss)
+    diff = [i for i, (g, w) in enumerate(zip(grads_d, grads))
+            if not torch.equal(g.to_local(), w)]
+    print(f"{arch} ({'full depth' if layers is None else f'{layers} layers'}"
+          f", {batch}x{seq}) on a DTensor (1, 1) mesh: loss {float(loss)!r}"
+          f" {'==' if same else '!='} {float(loss_d.to_local())!r}; "
+          f"{len(grads) - len(diff)} of {len(grads)} gradients bit-equal; "
+          f"launches {json.dumps(launches)}")
+    if not same or diff:
+        raise AssertionError(f"{arch}: the DTensor run departs from the "
+                             f"plain one (loss equal: {same}; gradients "
+                             f"{diff} differ)")
+    del params, grads, p_dt, grads_d
+    torch.cuda.empty_cache()
+    return launches
+
+
+def probe_allowance(need, total_bytes: int, n: int) -> int:
+    """Bytes the loader's CRC probe reads for a partial plan over `need`
+    (global ranges of the flat stream) on an SG of `n` whose snapshots
+    carry per-stripe digests: one segment per RAIM5 block, each block
+    holding a needed byte verified whole (`loader.probe_crc`), so
+    block_size bytes for every data block the ranges touch (the stream's
+    k-th block is one member's local block)."""
+    from repro_torch.core import raim5
+    bs = raim5.block_size(total_bytes, n)
+    blocks = set()
+    for a, b in need:
+        blocks.update(range(a // bs, (b - 1) // bs + 1))
+    return bs * len(blocks)
+
+
+def _schedule_allowance(ld, total_bytes: int, n: int) -> int:
+    """Bytes the adaptive read scheduler may read beyond a plan, from its
+    own counters (`LoadStats`): for each byte rerouted through parity,
+    the parity and the other n - 2 data blocks' bytes it decodes from,
+    each parity region verified once when any is (at most n); each
+    hedged read, one chunk read twice (a chunk packs pieces of at most
+    chunk_bytes until it holds chunk_bytes, so under twice that)."""
+    from repro_torch.core import raim5
+    from repro_torch.core.readsched import SchedConfig
+    rerouted = ld.parity_rerouted_bytes
+    return (n - 2) * rerouted \
+        + (n * raim5.block_size(total_bytes, n) if rerouted else 0) \
+        + ld.hedged_reads * 2 * SchedConfig().chunk_bytes
+
+
+def _reshard_run(torch, device="cuda", cfg=None):
+    """9(d): RESHARD_ARCH's full-width state snapshotted by an SG of SG
+    members, restored for each coordinate of a RESHARD_MESH mesh through
+    `RestoreTarget(shardings=state_specs(...), mesh, coord)`: every byte
+    of the coordinate's ranges equal to the saved byte, the plan's cover
+    equal to those ranges (whole leaves where a leaf falls back), and the
+    bytes read no more than those ranges plus the CRC probe's blocks
+    (`probe_allowance`) plus the read scheduler's extra reads
+    (`_schedule_allowance`); then one full restore, byte-exact, reading
+    no more than the members' own regions plus that allowance, which
+    each coordinate's bytes read are reported against. -> (rows a
+    coordinate, the full restore's row)."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.api import CheckpointSpec, RestoreTarget
+    from repro_torch.api.registry import create_checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import loader
+    from repro_torch.core import raim5
+    from repro_torch.core.treebytes import (host_bytes, leaf_arrays,
+                                            make_flat_spec)
+    from repro_torch.dist import shardings as SH
+    from repro_torch.train.steps import init_train_state
+    cfg = cfg or get_config(RESHARD_ARCH)
+    state = init_train_state(cfg, 0, device=device)
+    fs = make_flat_spec(state)
+    saved = np.concatenate([host_bytes(x) for x in leaf_arrays(state)])
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 axis_sizes=RESHARD_MESH)
+    shardings = SH.state_specs(cfg, state)
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="reshard-") as ckdir:
+        spec = CheckpointSpec(backend="reft", ckpt_dir=ckdir, sg_size=SG)
+        with create_checkpointer(spec, state) as ck:
+            if not ck.snapshot(state, 1, wait=True):
+                raise AssertionError("reshard: the snapshot was not taken")
+            for d in range(RESHARD_MESH[0]):
+                for m in range(RESHARD_MESH[1]):
+                    coord = {"data": d, "model": m}
+                    need = loader.normalize_ranges(loader.need_for_sharding(
+                        fs, shardings, mesh, coord), fs.total_bytes)
+                    t0 = time.perf_counter()
+                    res = ck.restore(target=RestoreTarget(
+                        shardings=shardings, mesh=mesh, coord=coord))
+                    secs = time.perf_counter() - t0
+                    got = np.concatenate([host_bytes(x) for x in
+                                          leaf_arrays(res.state)])
+                    bad = [(a, b) for a, b in need
+                           if not np.array_equal(got[a:b], saved[a:b])]
+                    n_need = sum(b - a for a, b in need)
+                    ld = res.load
+                    probe = probe_allowance(need, fs.total_bytes, SG) \
+                        + _schedule_allowance(ld, fs.total_bytes, SG)
+                    row = {"coord": coord, "tier": res.tier,
+                           "ranges": len(need), "bytes_needed": n_need,
+                           "plan_bytes": ld.bytes_needed,
+                           "probe_allowance": probe,
+                           "bytes_read": ld.bytes_read,
+                           "decoded_bytes": ld.decoded_bytes,
+                           "parity_rerouted_bytes":
+                               ld.parity_rerouted_bytes,
+                           "state_bytes": fs.total_bytes, "seconds": secs}
+                    rows.append(row)
+                    print(f"reshard {coord}: tier {res.tier}, {len(need)} "
+                          f"ranges, {n_need} B of the state's "
+                          f"{fs.total_bytes} B, read {ld.bytes_read} B "
+                          f"of at most {n_need + probe} (plan "
+                          f"{ld.bytes_needed} B + probe, reroutes and hedges "
+                          f"{probe} B; decoded "
+                          f"{ld.decoded_bytes} B, rerouted through parity "
+                          f"{ld.parity_rerouted_bytes} B), {secs:.3f} s; "
+                          f"byte-exact: {not bad}")
+                    if bad or ld.bytes_needed != n_need \
+                            or ld.bytes_read > n_need + probe:
+                        raise AssertionError(
+                            f"reshard {coord}: {len(bad)} ranges differ; "
+                            f"plan {ld.bytes_needed} B, need {n_need} B; "
+                            f"read {ld.bytes_read} B, bound "
+                            f"{n_need + probe} B")
+            t0 = time.perf_counter()
+            res = ck.restore()
+            secs = time.perf_counter() - t0
+            got = np.concatenate([host_bytes(x) for x in
+                                  leaf_arrays(res.state)])
+            # each member's own region once (its CRC folded into the read)
+            own = SG * (SG - 1) * raim5.block_size(fs.total_bytes, SG)
+            full = {"tier": res.tier, "bytes_read": res.load.bytes_read,
+                    "own_regions": own, "bound": own + _schedule_allowance(
+                        res.load, fs.total_bytes, SG),
+                    "state_bytes": fs.total_bytes, "seconds": secs}
+            print(f"reshard full restore: tier {res.tier}, read "
+                  f"{res.load.bytes_read} B of at most {full['bound']} "
+                  f"(the own regions {own} B), {secs:.3f} s; byte-exact: "
+                  f"{np.array_equal(got, saved)}; each coordinate read "
+                  + ", ".join(f"{r['bytes_read'] / res.load.bytes_read:.4f}"
+                              for r in rows) + " of it")
+            if not np.array_equal(got, saved) \
+                    or res.load.bytes_read > full["bound"]:
+                raise AssertionError(
+                    f"reshard: the full restore differs or read "
+                    f"{res.load.bytes_read} B, bound {full['bound']} B")
+    return rows, full
+
+
+def dist_path(torch, serving):
+    """Phase 9: (a) + (b) the dry-runs, (c) the DTensor runs (counts set
+    to 0 before each DTensor run, summed: swa_flash and its backward
+    launch through their custom ops' sharding rules), (d) the reshard
+    restores. -> (launches, record)."""
+    import socket
+
+    import torch.distributed as dist
+    dry = _dry_runs(serving)
+    prefill = _dry_run_checks(dry, serving)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        launches = None
+        for run in DTENSOR_RUNS:
+            got = _dtensor_run(torch, mesh, *run)
+            launches = got if launches is None else \
+                {k: launches[k] + got[k] for k in got}
+    finally:
+        dist.destroy_process_group()
+    # starcoder2-3b's layers each launch the forward (twice under remat:
+    # the backward runs it again) and the backward once; opt-125m none
+    sc = _path_config("starcoder2-3b", DTENSOR_RUNS[1][3])
+    want = {"swa_flash": sc.num_layers * (2 if sc.remat else 1),
+            "swa_flash_bwd": sc.num_layers}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{DIST}: launches {launches}, want {want}")
+    reshard, reshard_full = _reshard_run(torch)
+    return launches, {"dry_run": dry["production"], "prefill_peak": prefill,
+                      "reshard": reshard, "reshard_full": reshard_full}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2374,7 +2706,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("8 serving at full width")
     by_path[SERVING], serving = serving_path(torch)
-    phase("9 summary")
+    torch.cuda.empty_cache()
+    phase("9 distribution and the dry-run")
+    by_path[DIST], dist_rec = dist_path(torch, serving)
+    phase("10 summary")
     own = frows[0]    # the path's instance: the fused own bucket
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     # bf16 (the path's type): tensor-core kernels; fp32: CUDA-core ones
@@ -2420,6 +2755,7 @@ def main() -> int:
         k.setdefault("library_ms", None)
         k["ok"] = True
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"distribution": dist_rec}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -48,10 +48,12 @@ import numpy as np
 
 from repro_torch.analyze.lockgraph import named_lock
 from repro_torch.core import raim5
-from repro_torch.core.treebytes import (FlatSpec, host_bytes, leaf_arrays,
-                                        tensor_from_bytes, tree_unflatten)
+from repro_torch.core.treebytes import (FlatSpec, dtype_itemsize, host_bytes,
+                                        leaf_arrays, tensor_from_bytes,
+                                        tree_unflatten)
 
 CHUNK_BYTES = 8 << 20           # streaming read/CRC granularity
+MAX_SLAB_RANGES = 4096          # strided-shard fallback: whole leaf beyond
 
 
 class CrcMismatch(RuntimeError):
@@ -1230,20 +1232,73 @@ def member_shard_need(m: int, member: int, total_bytes: int
     return out
 
 
+def _leaf_slab_ranges(ls, dim: int, idx: int, k: int
+                      ) -> Optional[List[Tuple[int, int]]]:
+    """Byte ranges of slab `idx`/`k` along `dim` of one leaf (evenly
+    divisible dims only; None = not representable within the range cap)."""
+    shape = ls.shape
+    if not shape or shape[dim] % k:
+        return None
+    per = shape[dim] // k
+    item = dtype_itemsize(ls.dtype)
+    inner = item
+    for d in range(dim + 1, len(shape)):
+        inner *= shape[d]
+    lead = 1
+    for d in range(dim):
+        lead *= shape[d]
+    if lead > MAX_SLAB_RANGES:
+        return None
+    stride = shape[dim] * inner
+    out = []
+    for li in range(lead):
+        a = ls.offset + li * stride + idx * per * inner
+        out.append((a, a + per * inner))
+    return out
+
+
 def need_for_sharding(spec: FlatSpec, shardings: Any, mesh: Any,
                       coord: Dict[str, int]) -> List[Tuple[int, int]]:
-    """Global ranges of THIS rank's slice under a `repro_torch.dist` sharding:
-    `shardings` is a PartitionSpec pytree leaf-aligned with the state,
-    adapted to `mesh` by the same rules training uses (`adapt_spec`), and
+    """Global ranges of THIS rank's slice under a `repro_torch.dist`
+    sharding: `shardings` is a spec tree (`dist.api.P` leaves, as
+    `dist.shardings.state_specs` gives) leaf-aligned with the state,
+    adapted to `mesh` (a `DeviceMesh`, or any object with `axis_names` and
+    `axis_sizes`) by the same rules training uses (`adapt_spec`), and
     `coord` gives the rank's index on each mesh axis.  Dims the adapted
-    spec leaves unsharded (or slabs too strided to enumerate) fall back
-    to the whole leaf.
+    spec leaves unsharded (or slabs too strided to enumerate) fall back to
+    the whole leaf."""
+    from repro_torch.dist.api import P, adapt_spec, axis_names, axis_sizes
 
-    Not ported yet: it needs the `dist` package (the device-mesh slice
-    of the port), which is still to come."""
-    raise NotImplementedError(
-        "need_for_sharding needs repro_torch.dist, which is not ported yet "
-        "(ROADMAP: distribution and dry-run)")
+    sizes = dict(zip(axis_names(mesh), axis_sizes(mesh)))
+    flat_specs = leaf_arrays(shardings)
+    assert len(flat_specs) == len(spec.leaves), \
+        f"sharding tree has {len(flat_specs)} leaves, state has " \
+        f"{len(spec.leaves)}"
+    need: List[Tuple[int, int]] = []
+    for ls, sp in zip(spec.leaves, flat_specs):
+        adapted = adapt_spec(sp, ls.shape, mesh) if len(ls.shape) else P()
+        picked = None
+        for dim, entry in enumerate(adapted):
+            if entry is None:
+                continue
+            names = entry if isinstance(entry, tuple) else (entry,)
+            k = 1
+            idx = 0
+            for nm in names:
+                idx = idx * sizes[nm] + coord.get(nm, 0)
+                k *= sizes[nm]
+            if k > 1:
+                picked = (dim, idx, k)
+                break                    # first sharded dim bounds the slab
+        if picked is None:
+            need.append((ls.offset, ls.offset + ls.nbytes))
+            continue
+        slab = _leaf_slab_ranges(ls, *picked)
+        if slab is None:
+            need.append((ls.offset, ls.offset + ls.nbytes))
+        else:
+            need.extend(slab)
+    return need
 
 
 def resolve_need(spec: FlatSpec, target) -> Optional[List[Tuple[int, int]]]:

@@ -25,13 +25,18 @@ register pass, then multiplied; there is no pipeline yet.
 
 `ssd_scan` dispatches on the inputs' device: a CPU tensor runs
 `ssd_scan_plain` (gradients from torch autograd through it); a CUDA tensor
-launches the kernels or raises; any other device raises.
+launches the kernels or raises; any other device raises. The kernels are
+also the custom ops `repro_torch::ssd_scan_fwd` and `ssd_scan_bwd` (fake
+impls, FLOP formulas, DTensor sharding rules), which DTensor and
+FakeTensor inputs reach (the dry-run, sharded runs).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from repro_torch.kernels.plain_grad import plain_grads
 
 DEFAULT_CHUNK = 256
 # Kernel geometry; each must equal the #define of the same name in
@@ -60,6 +65,13 @@ def ssd_scan_plain(u, a, Bm, Cm, h0=None, *, chunk: int = DEFAULT_CHUNK):
     the reference's gradient is NaN once some exp overflows there
     (cum[t] - cum[s] > 88 for s > t), since its where-backward multiplies
     a zero cotangent by inf. Here it stays finite."""
+    y, h, _ = _ssd_plain_states(u, a, Bm, Cm, h0, chunk=chunk)
+    return y, h
+
+
+def _ssd_plain_states(u, a, Bm, Cm, h0=None, *, chunk: int):
+    """`ssd_scan_plain`, also returning hs (B,H,nc,P,N): the state before
+    each chunk, as the forward kernels write it."""
     B, S, H, P = u.shape
     N = Bm.shape[-1]
     Q = chunk_len(S, chunk)
@@ -95,7 +107,7 @@ def ssd_scan_plain(u, a, Bm, Cm, h0=None, *, chunk: int = DEFAULT_CHUNK):
     y_inter = torch.einsum("bntm,bnhpm->bnthp", Cc, h_prevs) \
         * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(B, S, H, P)
-    return y, h
+    return y, h, h_prevs.transpose(1, 2)
 
 
 # ------------------------------------------------------------------ checks
@@ -253,14 +265,165 @@ _SIGNATURES = {
 }
 
 
+# ------------------------------------------------------------- custom ops
+# The kernels as torch.library custom ops: how torch's tracing machinery
+# sees them. A DTensor reaches them through the sharding rules below (each
+# rank's shard then runs the op's impl); a FakeTensor or meta tensor
+# through the fake impls (shapes, no data) and the FLOP formulas. The impl
+# is the wrapper's route: the CUDA kernels on a CUDA tensor, the plain
+# version (and its autograd) on a CPU tensor, a raise on any other.
+def _not_here(u):
+    return ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
+                      f"{u.device}")
+
+
+def _fwd_impl(u, a, Bm, Cm, h0, chunk):
+    if u.device.type == "cuda":
+        return ssd_scan_fwd(u, a, Bm, Cm, h0, chunk=chunk)
+    if u.device.type == "cpu":
+        _check(u, a, Bm, Cm, h0)
+        # the kernels' layouts: contiguous outputs
+        return tuple(t.contiguous() for t in
+                     _ssd_plain_states(u, a, Bm, Cm, h0, chunk=chunk))
+    raise _not_here(u)
+
+
+def _bwd_impl(dy, dh_final, u, a, Bm, Cm, hs, chunk):
+    if u.device.type == "cuda":
+        return ssd_scan_bwd(dy, dh_final, u, a, Bm, Cm, hs, chunk=chunk)
+    if u.device.type == "cpu":
+        _check(u, a, Bm, Cm)
+        # from the state before the first chunk (zeros when h0 was None)
+        h0 = hs[:, :, 0]
+        dh = torch.zeros_like(h0) if dh_final is None else dh_final
+        return plain_grads(lambda *t: ssd_scan_plain(*t, chunk=chunk),
+                           (u, a, Bm, Cm, h0), (dy, dh))
+    raise _not_here(u)
+
+
+ssd_scan_fwd_op = torch.library.custom_op(
+    "repro_torch::ssd_scan_fwd", _fwd_impl, mutates_args=(),
+    schema="(Tensor u, Tensor a, Tensor Bm, Tensor Cm, Tensor? h0, "
+           "int chunk) -> (Tensor, Tensor, Tensor)")
+ssd_scan_bwd_op = torch.library.custom_op(
+    "repro_torch::ssd_scan_bwd", _bwd_impl, mutates_args=(),
+    schema="(Tensor dy, Tensor? dh_final, Tensor u, Tensor a, Tensor Bm, "
+           "Tensor Cm, Tensor hs, int chunk) "
+           "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+
+
+def ssd_flops(B, S, H, P, N, Q):
+    """(forward, backward) FLOP of the products the chunked kernels do,
+    one bf16 term each (the split does three): the causal products count
+    the Q (Q + 1) / 2 pairs of a chunk's lower triangle (`chip_smoke.py`
+    `ssd_flops`, the bound's work)."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    state = nc * H * 2 * P * N * Q          # st, X, du_state, D, dC/dB heads
+    causal = nc * H * 2 * P * tri           # (S o L) u, dy u^T, (S o L)^T dy
+    cb = nc * 2 * N * tri                   # C B^T, dS B, dS^T C
+    return (B * (2 * state + causal + cb),
+            B * (5 * state + 2 * causal + 3 * cb))
+
+
+def _flops_of(u_shape, Bm_shape, chunk):
+    B, S, H, P = u_shape
+    return ssd_flops(B, S, H, P, Bm_shape[-1], chunk_len(S, chunk))
+
+
+def workspace_bytes(u, Bm, chunk, backward: bool) -> int:
+    """Scratch the kernels allocate beyond their outputs (fp32): forward
+    cum (B,S,H) and S (B,nc,Q,Q); backward cum, gs (B,H,nc,P,N), S and dS,
+    dw (B,nc,H,nt,Q)."""
+    B, S, H, P = u.shape
+    N = Bm.shape[-1]
+    Q = chunk_len(S, chunk)
+    nc = S // Q
+    cum, sq = B * S * H, B * nc * Q * Q
+    if not backward:
+        return 4 * (cum + sq)
+    nt = -(-Q // TILE)
+    return 4 * (cum + B * H * nc * P * N + 2 * sq + B * nc * H * nt * Q)
+
+
+@ssd_scan_fwd_op.register_fake
+def _fwd_fake(u, a, Bm, Cm, h0, chunk):
+    B, S, H, P = u.shape
+    N = Bm.shape[-1]
+    nc = S // chunk_len(S, chunk)
+    return (torch.empty_like(u), u.new_empty((B, H, P, N)),
+            u.new_empty((B, H, nc, P, N)))
+
+
+@ssd_scan_bwd_op.register_fake
+def _bwd_fake(dy, dh_final, u, a, Bm, Cm, hs, chunk):
+    B, S, H, P = u.shape
+    N = Bm.shape[-1]
+    return (torch.empty_like(u), torch.empty_like(a), torch.empty_like(Bm),
+            torch.empty_like(Cm), u.new_empty((B, H, P, N)))
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
+    def _fwd_flops(u, a, Bm, Cm, h0, chunk, *args, **kwargs):
+        return _flops_of(u, Bm, chunk)[0]
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+    def _bwd_flops(dy, dh_final, u, a, Bm, Cm, hs, chunk, *args, **kwargs):
+        return _flops_of(u, Bm, chunk)[1]
+
+
+def _register_sharding():
+    """The scan is independent over batch rows and over heads (B and C
+    are shared by the heads: replicated, and their gradients partial
+    sums over the heads' shards)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    R, s0, s1, s2 = Replicate(), Shard(0), Shard(1), Shard(2)
+
+    @register_sharding(torch.ops.repro_torch.ssd_scan_fwd.default)
+    def _fwd_rule(u, a, Bm, Cm, h0, chunk):
+        # (y, h_final, hs) <- (u, a, Bm, Cm, h0, chunk)
+        def h(p):
+            return None if h0 is None else p
+        return [([R, R, R], [R, R, R, R, h(R), None]),
+                ([s0, s0, s0], [s0, s0, s0, s0, h(s0), None]),
+                ([s2, s1, s1], [s2, s2, R, R, h(s1), None])]
+
+    @register_sharding(torch.ops.repro_torch.ssd_scan_bwd.default)
+    def _bwd_rule(dy, dh_final, u, a, Bm, Cm, hs, chunk):
+        # (du, da, dBm, dCm, dh0) <- (dy, dh_final, u, a, Bm, Cm, hs, chunk)
+        def d(p):
+            return None if dh_final is None else p
+        return [([R, R, R, R, R], [R, d(R), R, R, R, R, R, None]),
+                ([s0, s0, s0, s0, s0], [s0, d(s0), s0, s0, s0, s0, s0, None]),
+                ([s2, s2, Partial(), Partial(), s1],
+                 [s2, d(s1), s2, s2, R, R, s1, None])]
+
+
+_register_flops()
+_register_sharding()
+
+
+def _traced(t) -> bool:
+    """A tensor subclass (DTensor, FakeTensor): reach the kernels through
+    their custom ops. A plain tensor calls the wrappers directly."""
+    return type(t) is not torch.Tensor
+
+
 class SSDScan(torch.autograd.Function):
     """Forward kernel, backward kernel. Works under non-reentrant
     `torch.utils.checkpoint`: the forward runs again during backward and
-    saves the same tensors."""
+    saves the same tensors. DTensor and FakeTensor inputs go through the
+    custom ops."""
 
     @staticmethod
     def forward(ctx, u, a, Bm, Cm, h0, chunk):
-        y, h_final, hs = ssd_scan_fwd(u, a, Bm, Cm, h0, chunk=chunk)
+        if _traced(u):
+            y, h_final, hs = ssd_scan_fwd_op(u, a, Bm, Cm, h0, chunk)
+        else:
+            y, h_final, hs = ssd_scan_fwd(u, a, Bm, Cm, h0, chunk=chunk)
         ctx.save_for_backward(u, a, Bm, Cm, hs)
         ctx.chunk = chunk
         ctx.has_h0 = h0 is not None
@@ -273,8 +436,12 @@ class SSDScan(torch.autograd.Function):
         dy = torch.zeros_like(u) if dy is None else dy.contiguous()
         if dh_final is not None:
             dh_final = dh_final.contiguous()
-        du, da, dB, dC, dh0 = ssd_scan_bwd(dy, dh_final, u, a, Bm, Cm, hs,
-                                           chunk=ctx.chunk)
+        if _traced(u):
+            du, da, dB, dC, dh0 = ssd_scan_bwd_op(dy, dh_final, u, a, Bm, Cm,
+                                                  hs, ctx.chunk)
+        else:
+            du, da, dB, dC, dh0 = ssd_scan_bwd(dy, dh_final, u, a, Bm, Cm,
+                                               hs, chunk=ctx.chunk)
         return du, da, dB, dC, (dh0 if ctx.has_h0 else None), None
 
 
@@ -282,11 +449,11 @@ def ssd_scan(u, a, Bm, Cm, h0=None, *, chunk: int):
     """The SSD core of a Mamba2 layer: (y, h_final). Differentiable on
     both routes: CPU tensors run `ssd_scan_plain` under torch autograd,
     CUDA tensors the kernels of `SSDScan`; there is no fallback from one
-    to the other."""
+    to the other. A DTensor or FakeTensor (either device) goes through
+    `SSDScan` and the custom ops."""
     _check(u, a, Bm, Cm, h0)
-    if u.device.type == "cpu":
+    if u.device.type not in ("cpu", "cuda"):
+        raise _not_here(u)
+    if u.device.type == "cpu" and not _traced(u):
         return ssd_scan_plain(u, a, Bm, Cm, h0, chunk=chunk)
-    if u.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
-                         f"{u.device}")
     return SSDScan.apply(u, a, Bm, Cm, h0, chunk)

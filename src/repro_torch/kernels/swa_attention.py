@@ -25,7 +25,10 @@ attention (`FULL_WINDOW`).
 
 `swa_flash` dispatches on the inputs' device: a CPU tensor runs
 `swa_flash_plain` (gradients from torch autograd through it); a CUDA
-tensor launches the kernels or raises; any other device raises.
+tensor launches the kernels or raises; any other device raises. The
+kernels are also the custom ops `repro_torch::swa_flash_fwd` and
+`swa_flash_bwd` (fake impls, FLOP formulas, DTensor sharding rules),
+which DTensor and FakeTensor inputs reach (the dry-run, sharded runs).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.plain_grad import plain_grads
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import FULL_WINDOW
 
@@ -64,17 +68,46 @@ def _window(window) -> int:
     return w
 
 
-def swa_flash_plain(q, k, v, *, window, causal=True):
+def swa_flash_plain(q, k, v, *, window, causal=True, with_lse=False):
     """`models.flash.flash_attention` with the model's tiling
     (`models.attention`'s flash branch) and the static band: the port's
     windows are python ints, so the KV blocks outside each query block's
-    band are always skipped (the values are those of the full sweep)."""
+    band are always skipped (the values are those of the full sweep).
+    With `with_lse`, also each row's lse (B,KV,G,Sq) float32, as the
+    forward kernels write it."""
     w = _window(window)
     Sq, Sk = q.shape[1], k.shape[1]
     return flash_attention(q, k, v, window=w, causal=causal,
                            block_q=max(512, Sq // 16),
                            block_k=max(1024, Sk // 16),
-                           band=w if w < FULL_WINDOW else None)
+                           band=w if w < FULL_WINDOW else None,
+                           with_lse=with_lse)
+
+
+def band_pairs(Sq, Sk, window, causal) -> int:
+    """(query, key) pairs of an Sq x Sk attention that the mask lets
+    through: kpos <= qpos if causal, |qpos - kpos| < window: the work the
+    kernels' bound counts (`chip_smoke.py` `band_pairs`)."""
+    W = min(_window(window), max(Sq, Sk))
+    if Sq == Sk:
+        S = Sq
+        W = min(W, S)
+        below = W * (W + 1) // 2 + (S - W) * W   # 0 <= qpos - kpos < W
+        return below if causal else 2 * below - S
+    pairs = 0
+    for i in range(Sq):
+        lo = max(0, i - W + 1)
+        hi = min(Sk - 1, i if causal else i + W - 1)
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
+def swa_flops(q_shape, k_shape, window, causal):
+    """(forward, backward) FLOP of the kernels on these shapes: 2 products
+    of hd a band pair forward (S, PV), 5 backward (S, dP, dV, dQ, dK)."""
+    B, Sq, KV, G, hd = q_shape
+    pairs = band_pairs(Sq, k_shape[1], window, causal) * B * KV * G
+    return 4 * hd * pairs, 10 * hd * pairs
 
 
 # ------------------------------------------------------------------ checks
@@ -215,14 +248,130 @@ _BF16_SIGNATURES = {
 }
 
 
+# ------------------------------------------------------------- custom ops
+# The kernels as torch.library custom ops: how torch's tracing machinery
+# sees them. A DTensor reaches them through the sharding rules below (each
+# rank's shard then runs the op's impl); a FakeTensor or meta tensor
+# through the fake impls (shapes, no data) and the FLOP formulas. The impl
+# is the wrapper's route: the CUDA kernels on a CUDA tensor, the plain
+# version (and its autograd) on a CPU tensor, a raise on any other.
+def _fwd_impl(q, k, v, window, causal):
+    if q.device.type == "cuda":
+        return swa_flash_fwd(q, k, v, window=window, causal=causal)
+    if q.device.type == "cpu":
+        _check(q, k, v)
+        o, lse = swa_flash_plain(q, k, v, window=window, causal=causal,
+                                 with_lse=True)
+        return o.contiguous(), lse.contiguous()
+    raise ValueError(f"swa_flash runs on cuda or cpu tensors, not "
+                     f"{q.device}")
+
+
+def _bwd_impl(do, q, k, v, o, lse, window, causal):
+    if q.device.type == "cuda":
+        return swa_flash_bwd(do, q, k, v, o, lse, window=window,
+                             causal=causal)
+    if q.device.type == "cpu":
+        _check(q, k, v)
+        return plain_grads(lambda *t: (swa_flash_plain(
+            *t, window=window, causal=causal),), (q, k, v), (do,))
+    raise ValueError(f"swa_flash runs on cuda or cpu tensors, not "
+                     f"{q.device}")
+
+
+swa_flash_fwd_op = torch.library.custom_op(
+    "repro_torch::swa_flash_fwd", _fwd_impl, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, int window, bool causal) "
+           "-> (Tensor, Tensor)")
+swa_flash_bwd_op = torch.library.custom_op(
+    "repro_torch::swa_flash_bwd", _bwd_impl, mutates_args=(),
+    schema="(Tensor do, Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+           "int window, bool causal) -> (Tensor, Tensor, Tensor)")
+
+
+def workspace_bytes(q, k, window, causal, backward: bool) -> int:
+    """Scratch the kernels allocate beyond their outputs: the bf16
+    backward's D (B,KV,G,Sq) float32."""
+    if backward and q.dtype == torch.bfloat16:
+        B, Sq, KV, G, _ = q.shape
+        return 4 * B * KV * G * Sq
+    return 0
+
+
+@swa_flash_fwd_op.register_fake
+def _fwd_fake(q, k, v, window, causal):
+    B, Sq, KV, G, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, KV, G, Sq), dtype=torch.float32))
+
+
+@swa_flash_bwd_op.register_fake
+def _bwd_fake(do, q, k, v, o, lse, window, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.swa_flash_fwd)
+    def _fwd_flops(q, k, v, window, causal, *args, **kwargs):
+        return swa_flops(q, k, window, causal)[0]
+
+    @register_flop_formula(torch.ops.repro_torch.swa_flash_bwd)
+    def _bwd_flops(do, q, k, v, o, lse, window, causal, *args, **kwargs):
+        return swa_flops(q, k, window, causal)[1]
+
+
+def _register_sharding():
+    """Attention is independent over batch rows, KV heads and the query
+    heads of a group: each is a way to shard it with no communication."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    R = Replicate()
+
+    @register_sharding(torch.ops.repro_torch.swa_flash_fwd.default)
+    def _fwd_rule(q, k, v, window, causal):
+        # (o, lse) <- (q, k, v, window, causal)
+        return [([R, R], [R, R, R, None, None]),
+                ([Shard(0), Shard(0)],
+                 [Shard(0), Shard(0), Shard(0), None, None]),
+                ([Shard(2), Shard(1)],
+                 [Shard(2), Shard(2), Shard(2), None, None]),
+                ([Shard(3), Shard(2)], [Shard(3), R, R, None, None])]
+
+    @register_sharding(torch.ops.repro_torch.swa_flash_bwd.default)
+    def _bwd_rule(do, q, k, v, o, lse, window, causal):
+        # (dq, dk, dv) <- (do, q, k, v, o, lse, window, causal)
+        s0, s2, s3 = Shard(0), Shard(2), Shard(3)
+        return [([R, R, R], [R, R, R, R, R, R, None, None]),
+                ([s0, s0, s0], [s0, s0, s0, s0, s0, s0, None, None]),
+                ([s2, s2, s2], [s2, s2, s2, s2, s2, Shard(1), None, None]),
+                ([s3, Partial(), Partial()],
+                 [s3, s3, R, R, s3, s2, None, None])]
+
+
+_register_flops()
+_register_sharding()
+
+
+def _traced(t) -> bool:
+    """A tensor subclass (DTensor, FakeTensor): reach the kernels through
+    their custom ops. A plain tensor calls the wrappers directly."""
+    return type(t) is not torch.Tensor
+
+
 class SWAFlash(torch.autograd.Function):
     """Forward kernel, backward kernels. Works under non-reentrant
     `torch.utils.checkpoint`: the forward runs again during backward and
-    saves the same tensors."""
+    saves the same tensors. DTensor and FakeTensor inputs go through the
+    custom ops."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, causal):
-        o, lse = swa_flash_fwd(q, k, v, window=window, causal=causal)
+        if _traced(q):
+            o, lse = swa_flash_fwd_op(q, k, v, window, causal)
+        else:
+            o, lse = swa_flash_fwd(q, k, v, window=window, causal=causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.window, ctx.causal = window, causal
         return o
@@ -230,8 +379,12 @@ class SWAFlash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = swa_flash_bwd(do.contiguous(), q, k, v, o, lse,
-                                   window=ctx.window, causal=ctx.causal)
+        if _traced(q):
+            dq, dk, dv = swa_flash_bwd_op(do.contiguous(), q, k, v, o, lse,
+                                          ctx.window, ctx.causal)
+        else:
+            dq, dk, dv = swa_flash_bwd(do.contiguous(), q, k, v, o, lse,
+                                       window=ctx.window, causal=ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -239,13 +392,16 @@ def swa_flash(q, k, v, *, window, causal=True):
     """The attention core of a flash-path layer: (B,Sq,KV,G,hd) in q's
     type. Differentiable on both routes: CPU tensors run `swa_flash_plain`
     under torch autograd, CUDA tensors the kernels of `SWAFlash`; there is
-    no fallback from one to the other."""
+    no fallback from one to the other. A DTensor or FakeTensor (either
+    device) goes through `SWAFlash` and the custom ops."""
     _check(q, k, v)
     w = _window(window)
-    if q.device.type == "cpu":
-        return swa_flash_plain(q, k, v, window=w, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"swa_flash runs on cuda or cpu tensors, not "
                          f"{q.device}")
+    if _traced(q):
+        return SWAFlash.apply(q, k, v, w, bool(causal))
+    if q.device.type == "cpu":
+        return swa_flash_plain(q, k, v, window=w, causal=causal)
     _check_cuda(("q", q), ("k", k), ("v", v))
     return SWAFlash.apply(q, k, v, w, bool(causal))

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.api import index_copy_, reshape
 from repro_torch.kernels.swa_attention import swa_flash
 from repro_torch.models.layers import (
     apply_rope, dense_init, init_rms, pdtype_of, rms_norm, rope_angles,
@@ -41,9 +42,9 @@ def init_attn(gen, cfg, device):
 def _project_qkv(p, cfg, x, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q = reshape(x @ p["wq"], B, S, H, hd)
+    k = reshape(x @ p["wk"], B, S, KV, hd)
+    v = reshape(x @ p["wv"], B, S, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -59,7 +60,7 @@ def _gqa_scores(q, k, cfg):
     preferred_element_type=float32)."""
     B, Sq, H, hd = q.shape
     KV = cfg.num_kv_heads
-    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    qg = reshape(q, B, Sq, KV, H // KV, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
     return s * (hd ** -0.5)
 
@@ -69,7 +70,7 @@ def _mix(scores, v, cfg):
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bskh->bqkgh", w, v)
     B, Sq = o.shape[0], o.shape[1]
-    return o.reshape(B, Sq, cfg.num_heads * cfg.head_dim)
+    return reshape(o, B, Sq, cfg.num_heads * cfg.head_dim)
 
 
 def attention(p, cfg, x, *, window, positions, band=None):
@@ -86,9 +87,9 @@ def attention(p, cfg, x, *, window, positions, band=None):
     B, S = x.shape[0], x.shape[1]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if S >= FLASH_THRESHOLD or band is not None:
-        qg = q.reshape(B, S, KV, H // KV, hd)
+        qg = reshape(q, B, S, KV, H // KV, hd)
         o = swa_flash(qg, k, v, window=window, causal=cfg.causal)
-        return o.reshape(B, S, H * hd) @ p["wo"], (k, v)
+        return reshape(o, B, S, H * hd) @ p["wo"], (k, v)
     qpos = positions[:, None]
     kpos = positions[None, :]
     ok = (kpos - qpos < 1) if cfg.causal else \
@@ -116,8 +117,8 @@ def attention_decode(p, cfg, x, cache_k, cache_v, *, window, index):
     # sequence this is a plain positional write; when the cache is
     # window-sized (window_kv_cache) old entries are overwritten.
     slot = torch.remainder(pos, Smax).long()
-    cache_k.index_copy_(1, slot, k1.to(cache_k.dtype))
-    cache_v.index_copy_(1, slot, v1.to(cache_v.dtype))
+    index_copy_(cache_k, 1, slot, k1.to(cache_k.dtype))
+    index_copy_(cache_v, 1, slot, v1.to(cache_v.dtype))
     j = torch.arange(Smax, dtype=index.dtype, device=x.device)
     # true position of slot j; fmod truncates as the reference's lax.rem,
     # so a slot not yet written gets a position above index

@@ -37,12 +37,14 @@ def _band_blocks(iq, bq, bk, nk, band, causal):
 
 
 def flash_attention(q, k, v, *, window, causal=True, block_q=512,
-                    block_k=1024, band=None):
+                    block_k=1024, band=None, with_lse=False):
     """q: (B,Sq,KV,G,hd), k/v: (B,Sk,KV,hd); window: int.
 
     band: optional static int window; KV blocks wholly outside the band of
     each query block are skipped (exact banded attention).
-    Returns (B,Sq,KV,G,hd) in q.dtype.
+    Returns (B,Sq,KV,G,hd) in q.dtype; with `with_lse`, also each row's
+    log-sum-exp m + log l of its scaled scores, (B,KV,G,Sq) float32, as
+    the kernels write it.
     """
     B, Sq, KV, G, hd = q.shape
     Sk = k.shape[1]
@@ -53,7 +55,7 @@ def flash_attention(q, k, v, *, window, causal=True, block_q=512,
     dev = q.device
     neg = torch.full((), NEG_INF, device=dev)
 
-    outs = []
+    outs, lses = [], []
     for iq in range(nq):
         q_i = q[:, iq * bq:(iq + 1) * bq].float()
         qpos = iq * bq + torch.arange(bq, device=dev)
@@ -80,6 +82,11 @@ def flash_attention(q, k, v, *, window, causal=True, block_q=512,
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
         outs.append(out.to(q.dtype))                     # (B,KV,G,bq,hd)
+        if with_lse:
+            lses.append(m + torch.log(l))
     o = torch.stack(outs, dim=1)                          # (B,nq,KV,G,bq,hd)
     o = o.permute(0, 1, 4, 2, 3, 5)                       # (B,nq,bq,KV,G,hd)
-    return o.reshape(B, Sq, KV, G, hd)
+    o = o.reshape(B, Sq, KV, G, hd)
+    if with_lse:
+        return o, torch.cat(lses, dim=-1)
+    return o

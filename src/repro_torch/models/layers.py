@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.treebytes import torch_dtype
+from repro_torch.dist.api import vocab_nll
 
 # Sentinel window width meaning "full attention" (fits int32, > any seq len).
 FULL_WINDOW = 1 << 30
@@ -87,10 +88,7 @@ def mlp(p, x):
 
 def cross_entropy(logits, labels, mask=None):
     """Mean CE in fp32. logits (..., V), labels (...) integer."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - ll
+    nll = vocab_nll(logits, labels)
     if mask is None:
         return nll.mean()
     mask = mask.float()
@@ -114,9 +112,7 @@ def chunked_cross_entropy(h, w_out, labels, chunk, mask=None):
         ll = labels[:, i * c:(i + 1) * c]
         mm = (mask[:, i * c:(i + 1) * c].float() if mask is not None
               else torch.ones(ll.shape, dtype=torch.float32, device=h.device))
-        logits = (hh @ w_out).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, ll.long()[..., None])[..., 0]
-        tot = tot + ((logz - tgt) * mm).sum()
+        nll = vocab_nll(hh @ w_out, ll)
+        tot = tot + (nll * mm).sum()
         cnt = cnt + mm.sum()
     return tot / torch.clamp(cnt, min=1.0)

@@ -7,7 +7,10 @@ shape (num_layers, ...) — so the flat byte streams of the two packages
 line up leaf for leaf; the decode cache keeps it too
 (`cache["entries"]["pos0"]["k"]` of shape (num_layers, B, S, KV, hd)).
 The layer loop unbinds the stacks once per call; `cfg.remat` maps to
-`torch.utils.checkpoint` per layer.  Serving (`logits_fn`, `init_cache`,
+`torch.utils.checkpoint` per layer.  Inside a `dist.use_mesh` context,
+on DTensor params, the two `shard` calls of the reference (each layer's
+input, the logits) redistribute the activations; elsewhere they are the
+identity.  Serving (`logits_fn`, `init_cache`,
 `decode_step`) runs under `torch.inference_mode()` and writes each
 step's k/v (or SSM state) into the cache in place.
 """
@@ -18,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core.treebytes import leaf_arrays, tree_unflatten
+from repro_torch.dist.api import P, lookup, new_stack, shard
 from repro_torch.models.attention import (
     attention, attention_decode, init_attn,
 )
@@ -110,6 +114,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device):
 def _ffn(cfg, p, h):
     # d_ff == 0 (Mamba2): no FFN; the reference adds zeros
     if cfg.d_ff:
+        # the layer input's layout again (no op outside a mesh): after
+        # the mixer's row-parallel output DTensor would otherwise shard
+        # the sequence over "model", which its matmul propagation cannot
+        # carry through the flattened (B*S) rows; GSPMD needs no hint
+        h = shard(h, P(("pod", "data"), None, None))
         h = h + mlp(p["ffn"], rms_norm(h, p["ln2"]))
     return h
 
@@ -117,6 +126,7 @@ def _ffn(cfg, p, h):
 def _layer(cfg, p, h, positions, window, band):
     """One layer on the full sequence. -> (h, cache entry): the layer's
     (k, v), or its SSM (conv_state, h_final)."""
+    h = shard(h, P(("pod", "data"), None, None))
     if cfg.layer_kind(0) == ATTN:
         a, entry = attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
                              window=window, positions=positions, band=band)
@@ -149,13 +159,13 @@ def _run_blocks(cfg, params, h, *, collect_cache, remat):
             continue
         for name, t in zip(_cache_names(cfg), entry):
             if i == 0:
-                stacks[name] = t.new_empty((cfg.num_layers, *t.shape))
+                stacks[name] = new_stack(t, cfg.num_layers)
             stacks[name][i] = t
     return h, ({"pos0": stacks} if collect_cache else {})
 
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens.long()].to(dtype_of(cfg))
+    return lookup(params["embed"], tokens.long()).to(dtype_of(cfg))
 
 
 def _lm_head_w(params):
@@ -177,7 +187,8 @@ def forward(cfg: ModelConfig, params, batch, *, collect_cache=False,
     if cfg.chunked_ce:
         loss = chunked_cross_entropy(h, w_out, labels, cfg.chunked_ce)
     else:
-        loss = cross_entropy(h @ w_out, labels)
+        logits = shard(h @ w_out, P(("pod", "data"), None, "model"))
+        loss = cross_entropy(logits, labels)
     out = {"loss": loss}
     if collect_cache:
         out["cache"] = caches

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.api import P, reshape, shard, split, zero_pad
 from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK, ssd_scan
 from repro_torch.models.layers import dense_init, init_rms, pdtype_of, rms_norm
 
@@ -36,14 +37,19 @@ def init_ssm(gen, cfg, device):
 
 def _split_proj(p, cfg, x):
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    z, xbc, dt = torch.split(x @ p["in_proj"], [di, di + 2 * N, H], dim=-1)
+    # the row-parallel projection's sums reduced, rows kept on the batch
+    # axes (no op outside a mesh): DTensor would otherwise scatter them
+    # over the sequence, which the later matmuls cannot carry
+    proj = shard(x @ p["in_proj"],
+                 P(("pod", "data"), *((None,) * (x.dim() - 1))))
+    z, xbc, dt = split(proj, [di, di + 2 * N, H], dim=-1)
     return z, xbc, dt                                    # dt: (..., H)
 
 
 def _conv_full(p, xbc):
     """Causal depthwise conv over the sequence. xbc: (B, S, ch)."""
     W = p["conv_w"].shape[0]
-    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    pad = zero_pad(xbc, (0, 0, W - 1, 0))
     out = sum(pad[:, i:i + xbc.shape[1], :] * p["conv_w"][i]
               for i in range(W))
     return F.silu(out + p["conv_b"])
@@ -95,14 +101,14 @@ def ssm_block(p, cfg, x, h0=None, chunk=DEFAULT_CHUNK):
     z, xbc, dt = _split_proj(p, cfg, x)
     conv_state = xbc[:, -(cfg.ssm_conv_width - 1):, :]   # for decode handoff
     xbc = _conv_full(p, xbc)
-    xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
-    xs = xs.reshape(B, S, H, P)
+    xs, Bm, Cm = split(xbc, [di, N, N], dim=-1)
+    xs = reshape(xs, B, S, H, P)
     a, u = _gates(p, cfg, dt, xs)
     f32 = lambda t: t.to(torch.float32).contiguous()     # noqa: E731
     y, h_final = ssd_scan(f32(u), f32(a), f32(Bm), f32(Cm), h0=h0,
                           chunk=chunk)
     y = y + p["D_skip"][None, None, :, None] * xs.float()
-    y = y.reshape(B, S, di).to(x.dtype)
+    y = reshape(y, B, S, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["gate_norm"])
     out = y @ p["out_proj"]
     return out, (conv_state.to(x.dtype), h_final)
@@ -118,8 +124,8 @@ def ssm_decode(p, cfg, x, conv_state, h):
     z, xbc, dt = _split_proj(p, cfg, x[:, 0, :])
     xbc, new_conv = _conv_step(p, xbc, conv_state)
     conv_state.copy_(new_conv)
-    xs, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
-    xs = xs.reshape(B, H, P)
+    xs, Bm, Cm = split(xbc, [di, N, N], dim=-1)
+    xs = reshape(xs, B, H, P)
     A = -torch.exp(p["A_log"])
     dtp = _softplus(dt.float() + p["dt_bias"])                    # (B,H)
     decay = torch.exp(dtp * A)                                    # (B,H)
@@ -128,6 +134,6 @@ def ssm_decode(p, cfg, x, conv_state, h):
                                              Bm.float()[:, None, None, :])
     y = torch.einsum("bhpm,bm->bhp", h, Cm.float())
     y = y + p["D_skip"][None, :, None] * xs.float()
-    y = y.reshape(B, di).to(x.dtype)
+    y = reshape(y, B, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["gate_norm"])
     return (y @ p["out_proj"])[:, None, :], conv_state, h

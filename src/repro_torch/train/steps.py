@@ -12,7 +12,8 @@ leaf of the old one, so a snapshot in flight keeps reading step t.
 """
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -68,22 +69,32 @@ def init_train_state(cfg: ModelConfig, seed: int = 0,
             "rng": torch.from_numpy(prng_key(seed + 1)).to(device)}
 
 
+def apply_step(cfg: ModelConfig, opt: AdamConfig, state: dict,
+               batch: dict) -> tuple:
+    """The step's device work: the loss, its gradients and the AdamW
+    update -> (new params, new opt_state, metrics). Out of place.
+    `make_train_step` adds the step counter and the rng fold; the
+    dry-run traces this on DTensor state."""
+    params = state["params"]
+    leaves = [p.detach().requires_grad_(True) for p in leaf_arrays(params)]
+    live = tree_unflatten(params, leaves)
+    loss, _ = M.forward(cfg, live, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    grads = tree_unflatten(params, list(grads))
+    with torch.no_grad():
+        new_params, new_opt, gnorm = adam_update(
+            opt, grads, state["opt_state"], params)
+    return new_params, new_opt, {"loss": loss.detach(), "grad_norm": gnorm}
+
+
 def make_train_step(cfg: ModelConfig, opt: AdamConfig | None = None):
     """-> train_step(state, batch) -> (new state, metrics).  Out of
     place; the loss and grad norm are device scalars."""
     opt = opt if opt is not None else AdamConfig()
 
     def train_step(state: dict, batch: dict) -> tuple:
-        params = state["params"]
-        leaves = [p.detach().requires_grad_(True)
-                  for p in leaf_arrays(params)]
-        live = tree_unflatten(params, leaves)
-        loss, _ = M.forward(cfg, live, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        grads = tree_unflatten(params, list(grads))
+        new_params, new_opt, metrics = apply_step(cfg, opt, state, batch)
         with torch.no_grad():
-            new_params, new_opt, gnorm = adam_update(
-                opt, grads, state["opt_state"], params)
             step = state["step"]
             rng = fold_in(state["rng"].cpu().numpy(), int(step))
             new_state = {
@@ -92,9 +103,27 @@ def make_train_step(cfg: ModelConfig, opt: AdamConfig | None = None):
                 "step": step + 1,
                 "rng": torch.from_numpy(rng).to(step.device),
             }
-        return new_state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return new_state, metrics
 
     return train_step
+
+
+def with_step_boundary(step_fn: Callable,
+                       notify: Callable[[], None] = None) -> Callable:
+    """Yield hook for the HASC saving pipeline: wrap a step function so
+    every call ticks the snapshot pipeline's step-boundary gate, and
+    in-flight L1 device pumps schedule their bucket bursts at step
+    boundaries (the reference's hook; `CheckpointSession.after_step`
+    ticks it too, so only a loop that never calls it needs this)."""
+    if notify is None:
+        from repro_torch.core.pipeline import step_boundary as notify
+
+    @functools.wraps(step_fn)
+    def stepped(*args, **kw):
+        out = step_fn(*args, **kw)
+        notify()
+        return out
+    return stepped
 
 
 def state_to(state: Any, device) -> Any:
