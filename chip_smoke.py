@@ -34,15 +34,19 @@ Phases, each printed as it ends; any failure exits non-zero:
      kernels, the bf16 route's tensor-core kernels, whose backward time
      includes its D pre-pass) against the plain flash attention and its
      autograd, in fp32 and in bf16, at starcoder2-3b's
-     shape and at gemma3-4b's head shape (local and global window), the
-     forward alone in bf16 at the serving path's prefill calls (S 32768:
-     gemma3-4b's local and global layers at its 8 rows, starcoder2-3b's
-     at its 12), the whole batch launched and each row held against the
+     shape, at hubert-xlarge's (hd 80, non-causal, the hd-128 kernels on
+     zero-filled columns) and at gemma3-4b's head shape (local and global
+     window), the forward alone in bf16 at the serving path's prefill
+     calls (S 32768: gemma3-4b's local and global layers at its 8 rows,
+     starcoder2-3b's at its 12, phi-3-vision-4.2b's, hd 96, at its 4),
+     the whole batch launched and each row held against the
      plain version on that row, timed at the batch and at one row, with
      SDPA's memory-efficient attention timed beside them as a yardstick,
      every bf16 output also held row by row against the reference's own
      scale, then at small shapes at the contract's edges (ragged S,
-     non-causal, window 1, B 2, hd 64 and 256), row by row in both types;
+     non-causal, window 1, B 2, hd 64 and 256, and the padded hd 80, 96
+     and 112 ragged, windowed, non-causal and with G 8), row by row in
+     both types;
      in every causal bf16 case, the first 64 rows' dq shown (no bound)
      against the fp64 gradient with the exact D and with D from the
      kernel's rounded O;
@@ -60,8 +64,11 @@ Phases, each printed as it ends; any failure exits non-zero:
      failure (recovered by a RAIM5 decode), every restored state checked
      byte for byte: opt-125m (seq 256), mamba2-130m (seq 2048, the SSD
      kernels in every layer), then starcoder2-3b (4 of its 30 layers, seq
-     16384, batch 1, the swa_flash kernels in every layer); the launch
-     counts are set to 0 just before each run and read just after it;
+     16384, batch 1, the swa_flash kernels in every layer), then
+     hubert-xlarge at full depth (48 layers, seq 4096, batch 2, frame
+     embeddings, non-causal swa_flash at hd 80 in every layer); the
+     launch counts are set to 0 just before each run and read just after
+     it;
   5. the durable tiers at full width, one path (counts set to 0 before
      it, read after it), opt-125m (seq 256, an SG of 4, 12 steps, every
      restore checked byte for byte):
@@ -104,9 +111,10 @@ Phases, each printed as it ends; any failure exits non-zero:
      both stages recovered byte-exact, each stage's tier printed (one
      path);
   8. serving at full width and full depth, one path (counts set to 0
-     before it, read after it): gemma3-4b (34 layers), starcoder2-3b (30)
-     and mamba2-130m (24), weights from a seed on the card, each through
-     `models.model`'s `logits_fn` (prefill_32k's 32768 tokens, timed; its
+     before it, read after it): gemma3-4b (34 layers), starcoder2-3b (30),
+     mamba2-130m (24) and phi-3-vision-4.2b (32; its prompts 576 patch
+     embeddings, then tokens), weights from a seed on the card, each through
+     `models.model`'s `logits_fn` (prefill_32k's 32768 positions, timed; its
      caches shaped as `init_cache`'s), a decode check (24 teacher-forced
      tokens through `decode_step` from an empty cache of the decode
      shape's length, the last logits and the caches decode wrote held
@@ -122,7 +130,7 @@ Phases, each printed as it ends; any failure exits non-zero:
   9. distribution and the dry-run: (a) `repro_torch.launch.dryrun` on
      the production 16x16 mesh for DRY_PAIRS (one chip's sharded fake
      program: FLOPs, bytes, collectives, argument and peak bytes, all
-     predictions), in a process of its own; (b) phase 8's three prefill
+     predictions), in a process of its own; (b) phase 8's four prefill
      calls dry-run on a (1, 1) mesh, each predicted peak held within
      PEAK_RATIO of the prefill's measured peak
      (torch.cuda.max_memory_allocated, reset just before it, less the
@@ -151,6 +159,7 @@ The module body stays import-light: the snapshot managers start with
 `spawn` and re-import this file.
 """
 import bisect
+import gc
 import importlib
 import json
 import math
@@ -174,11 +183,15 @@ RUN_ARGS = ["--backend", "reft", "--sg-size", "4", "--steps", "12",
 # on that path). starcoder2-3b's depth is cut to 4 of 30 layers: at full
 # depth its REFT state (43.1 GB) would not fit three times on the card
 # (snapshots in flight hold the old state while the step builds the new)
-# nor four SMPs' buffers in /dev/shm; every width is kept.
+# nor four SMPs' buffers in /dev/shm; every width is kept. hubert-xlarge
+# runs at full width and full depth (48 layers, frame embeddings, hd 80
+# through the padded swa_flash kernels, non-causal, seq 4096).
 PATHS = [("opt-125m", 256, 2, None, ("encode_bucket",)),
          ("mamba2-130m", 2048, 2, None,
           ("encode_bucket", "ssd_scan", "ssd_scan_bwd")),
          ("starcoder2-3b", 16384, 1, 4,
+          ("encode_bucket", "swa_flash", "swa_flash_bwd")),
+         ("hubert-xlarge", 4096, 2, None,
           ("encode_bucket", "swa_flash", "swa_flash_bwd"))]
 SG = 4                             # SG members on every path
 # the durable tiers' path (phase 5): opt-125m at full width under the
@@ -220,11 +233,15 @@ BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense tensor cores
 # the caches, their byte counts in PERF.md §4, beside the weights. The
 # fp32 check's rows: its caches at the decode shape's length take twice
 # the bf16 bytes beside the fp32 weights (gemma3-4b 9.1 GB a row beside
-# 18.2 GB; starcoder2-3b 32.2 GB beside 17.3 GB)
+# 18.2 GB; starcoder2-3b 32.2 GB beside 17.3 GB; phi-3-vision-4.2b 25.8
+# GB beside 15.3 GB). phi-3-vision's MHA caches take 12.9 GB a row at
+# S 32768: 4 prefill rows and 5 decode rows fit beside its 7.6 GB of
+# weights. Its prompts are its 576 patch embeddings, then tokens.
 SERVING = "serving"
 SERVE_RUNS = [("gemma3-4b", 8, "decode_32k", 12, 2),
               ("starcoder2-3b", 12, "long_500k", 1, 1),
-              ("mamba2-130m", 32, "decode_32k", 128, 128)]
+              ("mamba2-130m", 32, "decode_32k", 128, 128),
+              ("phi-3-vision-4.2b", 4, "decode_32k", 5, 1)]
 SERVE_T = 24                       # teacher-forced tokens held vs logits_fn
 SERVE_TIMED = 16                   # decode steps timed at the full Smax
 # decode's bf16 bound: for the logits (each request's row) and each cache
@@ -239,8 +256,9 @@ DECODE_BF16_K = 2.0
 # depth) attention decodes exactly what its prefill computes (0) and
 # Mamba2 departs by 3.1e-5, 9.1e-5 with the SSD inputs rounded as the
 # kernel's bf16x3 products round them; the bounds are about ten times
-# that (tests/test_torch_decode.py::test_fp32_decode_is_within_the_chip_bound)
-DECODE_FP32_TOL = {"dense": 1e-4, "ssm": 1e-3}
+# that (tests/test_torch_decode.py::test_fp32_decode_is_within_the_chip_bound);
+# a VLM decodes tokens through the dense family's attention
+DECODE_FP32_TOL = {"dense": 1e-4, "vlm": 1e-4, "ssm": 1e-3}
 # phase 9: distribution and the dry-run. (a) the dry-run on the production
 # 16x16 mesh for these pairs (one chip's sharded fake program, no device);
 # (b) phase 8's prefill calls dry-run on a (1, 1) mesh, the predicted peak
@@ -252,7 +270,9 @@ DECODE_FP32_TOL = {"dense": 1e-4, "ssm": 1e-3}
 DIST = "distribution"
 DRY_PAIRS = [("starcoder2-3b", "train_4k"), ("starcoder2-3b", "prefill_32k"),
              ("starcoder2-3b", "decode_32k"), ("starcoder2-3b", "long_500k"),
-             ("gemma3-4b", "decode_32k"), ("mamba2-130m", "train_4k")]
+             ("gemma3-4b", "decode_32k"), ("mamba2-130m", "train_4k"),
+             ("hubert-xlarge", "train_4k"),
+             ("phi-3-vision-4.2b", "prefill_32k")]
 PEAK_RATIO = (0.85, 1.15)
 DTENSOR_RUNS = [("opt-125m", 256, 2, None), ("starcoder2-3b", 16384, 1, 4)]
 RESHARD_ARCH, RESHARD_MESH = "opt-125m", (2, 2)
@@ -272,10 +292,14 @@ DRY_RUN = (
     "                                      mesh=mesh))\n"
     "print('DRYRUN_JSON ' + json.dumps(out))\n")
 # the swa_flash shapes: (label, B, S, KV, G, hd, window, causal, on path:
-# True for the training path's shape, fwd and bwd; SERVING for a layer
-# kind of the serving path's prefill at S 32768, forward only: timed at
-# B 1, held row by row at the prefill's batch, `_serve_batch`)
+# True for a training path's shape, fwd and bwd (the first row's times
+# are the kernels line's own, the others go under its `train_cases`);
+# SERVING for a layer kind of the serving path's prefill at S 32768,
+# forward only: timed at B 1, held row by row at the prefill's batch,
+# `_serve_batch`). hubert-xlarge (hd 80) and phi-3-vision-4.2b (hd 96)
+# run the hd-128 kernels on zero-filled columns.
 SWA_CASES = [("starcoder2-3b", 1, 16384, 2, 12, 128, 4096, True, True),
+             ("hubert-xlarge", 2, 4096, 16, 1, 80, None, False, True),
              ("gemma3-4b local", 1, 8192, 4, 2, 256, 1024, True, False),
              ("gemma3-4b global", 1, 8192, 4, 2, 256, None, True, False),
              ("gemma3-4b prefill local", 1, 32768, 4, 2, 256, 1024, True,
@@ -283,6 +307,8 @@ SWA_CASES = [("starcoder2-3b", 1, 16384, 2, 12, 128, 4096, True, True),
              ("gemma3-4b prefill global", 1, 32768, 4, 2, 256, None, True,
               SERVING),
              ("starcoder2-3b prefill", 1, 32768, 2, 12, 128, 4096, True,
+              SERVING),
+             ("phi-3-vision-4.2b prefill", 1, 32768, 32, 1, 96, None, True,
               SERVING)]
 # small shapes at the edges of the wrappers' contract: (label, B, S, KV, G,
 # hd, window, causal)
@@ -293,7 +319,18 @@ SWA_EDGE_CASES = [("ragged S, hd 64", 1, 200, 2, 3, 64, 70, True),
                   ("window 65, ragged", 1, 100, 2, 2, 128, 65, True),
                   ("hd 256, ragged", 1, 96, 1, 2, 256, 40, True),
                   ("hd 256, non-causal full", 1, 300, 1, 2, 256, None, False),
-                  ("banded, 16 tiles", 1, 2048, 2, 3, 128, 512, True)]
+                  ("banded, 16 tiles", 1, 2048, 2, 3, 128, 512, True),
+                  # the padded widths (the hd-128 kernels, zero-filled)
+                  ("ragged S, hd 80", 1, 200, 2, 3, 80, None, True),
+                  ("window 70, hd 80", 1, 300, 1, 2, 80, 70, True),
+                  ("non-causal, hd 80", 1, 333, 2, 2, 80, None, False),
+                  ("ragged S, hd 96", 1, 200, 2, 3, 96, None, True),
+                  ("window 70, hd 96", 1, 300, 1, 2, 96, 70, True),
+                  ("non-causal, hd 96", 1, 150, 2, 2, 96, 50, False),
+                  ("ragged S, hd 112", 1, 200, 2, 3, 112, None, True),
+                  ("window 70, hd 112", 1, 300, 1, 2, 112, 70, True),
+                  ("non-causal, hd 112", 1, 150, 2, 2, 112, 50, False),
+                  ("GQA 8, hd 112", 1, 384, 2, 8, 112, 256, True)]
 # the row check's (rel, row, floor) by type (`_rows_held`, against an fp64
 # yardstick): the floor is what the fp32 sums leave of a gradient that is
 # exactly zero (window 1: dS = P (dP - D) = 0), far below the rows of any
@@ -335,9 +372,12 @@ def _path_config(arch, layers):
 
 def _state_bytes(arch, layers=None):
     """Train-state bytes: params in bf16 (Mamba2's A_log, dt_bias, D_skip
-    in fp32) plus two fp32 moments; step, opt step, 2-word rng."""
+    in fp32) plus two fp32 moments; step, opt step, 2-word rng. The
+    params are the config's count and, for embedding inputs (frames,
+    patches), `proj_in` (D, D), which `param_count` leaves out."""
     cfg = _path_config(arch, layers)
-    n_par = cfg.param_count()
+    n_par = cfg.param_count() + (
+        cfg.d_model ** 2 if not cfg.embed_inputs or cfg.num_patches else 0)
     f32 = 3 * cfg.ssm_heads * cfg.num_layers if cfg.family == "ssm" else 0
     return (n_par - f32) * 2 + f32 * 4 + n_par * 8 + 4 + 4 + 8
 
@@ -1338,12 +1378,18 @@ def check_swa(torch):
                   f"{ops_ms:.5f} ms, {nbytes / 1e6:.1f} MB -> "
                   f"{bytes_ms:.5f} ms; {ms / bound_ms:.1f}x bound)")
             if on_path:
-                rows[name] = {
+                row = {
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": "operations" if ops_ms >= bytes_ms
                     else "bytes", "library_ms": lib_ms,
                     "library_call": (f"scaled_dot_product_attention "
                                      f"({backend})" if backend else why)}
+                if name in rows:          # a later training path's shape
+                    rows[name]["train_cases"].append(
+                        {"label": label, "shape": [B, S, KV, G, hd],
+                         "window": window, "causal": causal, **row})
+                else:
+                    rows[name] = {**row, "train_cases": []}
         del x, xb, q, k, v, do, o, lse
         torch.cuda.empty_cache()
     edge = torch.Generator(device="cuda").manual_seed(1)
@@ -1433,6 +1479,10 @@ def main_path(torch, arch, seq, batch, layers, must_launch):
     from repro_torch.launch import train
     ckpt = tempfile.mkdtemp(prefix="reft-chip-smoke-")
     cut = [] if layers is None else ["--layers", str(layers)]
+    # the previous run's last state lives on in reference cycles (its
+    # session and engines) until a collection: free it first
+    gc.collect()
+    torch.cuda.empty_cache()
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -2184,6 +2234,7 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
     cfg = get_config(arch)
     V = cfg.vocab_size
     nbytes = lambda t: t.numel() * t.element_size()      # noqa: E731
+    gc.collect()                 # an earlier run's tensors held in cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
@@ -2194,20 +2245,30 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
         return torch.randint(0, V, (b, s), generator=gen, device=dev,
                              dtype=torch.int32)
 
+    def prompts(b, s, patches=cfg.num_patches):
+        """s positions a row: a VLM's `patches` patch embeddings (seeded
+        normals, as the data pipeline draws them), then tokens."""
+        if cfg.family != "vlm":
+            return {"tokens": tokens(b, s)}
+        return {"patches": torch.randn(
+            b, patches, cfg.d_model, generator=gen, device=dev).to(
+                params["proj_in"].dtype), "tokens": tokens(b, s - patches)}
+
     # 1. prefill, after a warm-up at the flash threshold (the same kernels
     # and matmul routes, at 1/16 of the length)
     S = INPUT_SHAPES["prefill_32k"].seq_len
-    M.logits_fn(cfg, params, {"tokens": tokens(1, FLASH_THRESHOLD)})
-    prompt = tokens(prefill_b, S)
+    M.logits_fn(cfg, params, prompts(1, FLASH_THRESHOLD))
+    prompt = prompts(prefill_b, S)
     torch.cuda.synchronize()
     # the prefill's own peak (phase 9 holds the dry-run's prediction to
     # it): the live bytes other than its arguments (weights, prompt) are
     # taken off, and the run's peak so far is kept
     run_peak = torch.cuda.max_memory_allocated()
-    other = torch.cuda.memory_allocated() - weight_bytes - nbytes(prompt)
+    other = torch.cuda.memory_allocated() - weight_bytes - sum(
+        nbytes(t) for t in prompt.values())
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, caches = M.logits_fn(cfg, params, {"tokens": prompt})
+    logits, caches = M.logits_fn(cfg, params, prompt)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_peak = torch.cuda.max_memory_allocated() - other
@@ -2224,12 +2285,15 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
     del logits, caches, prompt
     torch.cuda.empty_cache()
 
-    # 2. the decode check: fp32 (its first fp32_b rows), then bf16
+    # 2. the decode check: fp32 (its first fp32_b rows), then bf16; decode
+    # takes tokens alone, so a VLM's prefill here has no patches
     Smax = INPUT_SHAPES[decode_shape].seq_len
     toks = tokens(decode_b, SERVE_T)
+    text = {"tokens": toks, **({"patches": torch.zeros(
+        decode_b, 0, cfg.d_model, device=dev)} if cfg.num_patches else {})}
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     p32 = tree_unflatten(params, [t.float() for t in leaf_arrays(params)])
-    l32, c32 = M.logits_fn(cfg32, p32, {"tokens": toks})
+    l32, c32 = M.logits_fn(cfg32, p32, text)
     tol32 = DECODE_FP32_TOL[cfg.family]
     cache = M.init_cache(cfg32, fp32_b, Smax, dev)
     for t in range(SERVE_T):
@@ -2252,7 +2316,7 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
     # `got` views the fp32 cache: drop it too, or its last leaf stays
     del p32, cache, ent, lg, got, want
     torch.cuda.empty_cache()
-    l16, c16 = M.logits_fn(cfg, params, {"tokens": toks})
+    l16, c16 = M.logits_fn(cfg, params, text)
     cache = M.init_cache(cfg, decode_b, Smax, dev)
     for t in range(SERVE_T):
         lg, cache = M.decode_step(cfg, params, cache, toks[:, t:t + 1])
@@ -2328,7 +2392,7 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
           f"{bound_ms:.3f} ms ({read + written} B at 3.35 TB/s), "
           f"{step_ms / bound_ms:.2f}x bound; peak device memory "
           f"{peak / 1e9:.3f} GB")
-    del params, cache, ent, lg, tok, toks
+    del params, cache, ent, lg, tok, toks, text
     torch.cuda.empty_cache()
     return run
 
@@ -2378,27 +2442,52 @@ def serving_path(torch):
     return launches, runs
 
 
-def _dry_runs(serving):
+def _prefill_seq():
+    from repro_torch.configs.base import INPUT_SHAPES
+    return INPUT_SHAPES["prefill_32k"].seq_len
+
+
+def start_dry_runs():
     """9(a) and (b)'s dry-runs in one process of their own (its fake
-    process group never meets phase 9(c)'s real one); prints each pair's
-    line. -> {"production": [record], "prefill": [record]}."""
-    prefills = [[r["arch"], r["prefill_batch"], r["prefill_seq"]]
-                for r in serving]
+    process group never meets phase 9(c)'s real one), started before
+    phase 8: it traces on the CPU while the card serves, and phase 8's
+    prefill calls it predicts are SERVE_RUNS' own. -> (process, start)."""
+    prefills = [[arch, rows, _prefill_seq()] for arch, rows, *_ in
+                SERVE_RUNS]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
         os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")])))
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", DRY_RUN, json.dumps(DRY_PAIRS),
-                        json.dumps(prefills)], cwd=HERE, env=env,
-                       capture_output=True, text=True, timeout=900)
-    print(f"dry-run process: rc {r.returncode}, "
-          f"{time.perf_counter() - t0:.1f} s")
-    for line in r.stdout.splitlines():
+    return subprocess.Popen(
+        [sys.executable, "-c", DRY_RUN, json.dumps(DRY_PAIRS),
+         json.dumps(prefills)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def _dry_runs(started, serving):
+    """Waits for `start_dry_runs`' process; prints each pair's line. ->
+    {"production": [record], "prefill": [record]}, the prefill records
+    in phase 8's order."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"dry-run process: rc {proc.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s since its start (beside "
+          f"phase 8)")
+    for line in out.splitlines():
         if line.startswith("[ok]"):
             print(f"  {line}")
-    out = [l for l in r.stdout.splitlines() if l.startswith("DRYRUN_JSON ")]
-    if r.returncode != 0 or not out:
-        raise AssertionError(f"dry-run failed:\n{r.stderr[-3000:]}")
-    return json.loads(out[0].split(" ", 1)[1])
+    got = [l for l in out.splitlines() if l.startswith("DRYRUN_JSON ")]
+    if proc.returncode != 0 or not got:
+        raise AssertionError(f"dry-run failed:\n{err[-3000:]}")
+    dry = json.loads(got[0].split(" ", 1)[1])
+    if [(r["arch"], r["prefill_batch"], r["prefill_seq"]) for r in serving] \
+            != [(a, b, _prefill_seq()) for a, b, *_ in SERVE_RUNS]:
+        raise AssertionError("phase 8 served other prefills than the "
+                             "dry-run traced")
+    return dry
 
 
 def _dry_run_checks(dry, serving):
@@ -2633,7 +2722,7 @@ def _reshard_run(torch, device="cuda", cfg=None):
     return rows, full
 
 
-def dist_path(torch, serving):
+def dist_path(torch, serving, dry_started):
     """Phase 9: (a) + (b) the dry-runs, (c) the DTensor runs (counts set
     to 0 before each DTensor run, summed: swa_flash and its backward
     launch through their custom ops' sharding rules), (d) the reshard
@@ -2641,7 +2730,7 @@ def dist_path(torch, serving):
     import socket
 
     import torch.distributed as dist
-    dry = _dry_runs(serving)
+    dry = _dry_runs(dry_started, serving)
     prefill = _dry_run_checks(dry, serving)
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
@@ -2694,6 +2783,8 @@ def main() -> int:
     for arch, seq, batch, layers, must in PATHS:
         by_path[arch], medians[arch] = main_path(torch, arch, seq, batch,
                                                  layers, must)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase("5 durable tiers at full width")
     by_path[DURABLE] = durable_path(torch, medians[DURABLE_ARCH])
     phase("6 supervised drill at full width")
@@ -2705,10 +2796,16 @@ def main() -> int:
     by_path[STAGES] = stage_path(torch)
     torch.cuda.empty_cache()
     phase("8 serving at full width")
-    by_path[SERVING], serving = serving_path(torch)
-    torch.cuda.empty_cache()
-    phase("9 distribution and the dry-run")
-    by_path[DIST], dist_rec = dist_path(torch, serving)
+    dry_started = start_dry_runs()
+    try:
+        by_path[SERVING], serving = serving_path(torch)
+        torch.cuda.empty_cache()
+        phase("9 distribution and the dry-run")
+        by_path[DIST], dist_rec = dist_path(torch, serving, dry_started)
+    finally:
+        if dry_started[0].poll() is None:
+            dry_started[0].kill()
+            dry_started[0].wait()
     phase("10 summary")
     own = frows[0]    # the path's instance: the fused own bucket
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"

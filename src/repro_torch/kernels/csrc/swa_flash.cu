@@ -46,12 +46,21 @@
 // the other sits row-major with rows padded to hd + 4 floats (read as
 // float4 along d, conflict-free for 8 consecutive tx). P and dS go through
 // shared memory, column-major with rows padded to rows + 4.
+//
+// Head widths: each kernel is compiled for HS, the rows' real width, and
+// runs at HD = padded(HS), the next multiple of 64: 64, 128 and 256 run
+// as they are; 80, 96 and 112 run the hd-128 tiles, the columns past HS
+// zero in shared memory (the loads fill them), so every product over HD
+// is the product over HS, and the stores write only HS columns a row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define COLS 64            // must equal FP32_COLS in swa_attention.py
 #define FWD_TY 16          // forward rows: 4 * FWD_TY = FP32_ROWS in swa_attention.py
 #define NEG_INF (-1e30f)
+
+// the width the products run at: hd rounded up to a multiple of 64
+__host__ __device__ constexpr int padded(int hd) { return (hd + 63) / 64 * 64; }
 
 // --------------------------------------------------------------- helpers
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -90,9 +99,10 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int window,
          (kpos - qpos < window);
 }
 
-// n rows of hd values starting at row `pos0` of a (S, row_stride) array,
-// into dst[n][LD] (row-major, padded); rows at or past S are zeros.
-template <int HD, int NT>
+// n rows of HS values starting at row `pos0` of a (S, row_stride) array,
+// into dst[n][LD] (row-major, padded); rows at or past S, and columns at
+// or past HS (to HD), are zeros.
+template <int HD, int NT, int HS = HD>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long row_stride, int pos0,
                                           int n, int S) {
@@ -100,14 +110,15 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   for (int idx = threadIdx.x; idx < n * C4; idx += NT) {
     const int row = idx / C4, d = (idx % C4) * 4;
     const int pos = pos0 + row;
-    const float4 x =
-        pos < S ? load4(src + (long long)pos * row_stride + d) : zero4();
+    const float4 x = pos < S && (HS == HD || d < HS)
+                         ? load4(src + (long long)pos * row_stride + d)
+                         : zero4();
     store4(dst + row * LD + d, x);
   }
 }
 
 // n rows as above, transposed into dst[HD][n]
-template <int HD, int NT>
+template <int HD, int NT, int HS = HD>
 __device__ __forceinline__ void load_rows_t(float* dst, const float* src,
                                             long long row_stride, int pos0,
                                             int n, int S) {
@@ -115,7 +126,9 @@ __device__ __forceinline__ void load_rows_t(float* dst, const float* src,
     const int row = idx % n, d = (idx / n) * 4;
     const int pos = pos0 + row;
     float x[4];
-    unpack(pos < S ? load4(src + (long long)pos * row_stride + d) : zero4(),
+    unpack(pos < S && (HS == HD || d < HS)
+               ? load4(src + (long long)pos * row_stride + d)
+               : zero4(),
            x);
 #pragma unroll
     for (int w = 0; w < 4; ++w) dst[(d + w) * n + row] = x[w];
@@ -179,9 +192,9 @@ __device__ __forceinline__ void store_tile_t(float* pT, const float (&x)[4][4],
            make_float4(x[0][c], x[1][c], x[2][c], x[3][c]));
 }
 
-// Dsm[i] = sum_d dO[pos0 + i][d] * O[pos0 + i][d] for i < n (0 past S);
-// NT / n threads per row, summed in a fixed order.
-template <int HD, int NT>
+// Dsm[i] = sum_d dO[pos0 + i][d] * O[pos0 + i][d] for i < n (0 past S),
+// d < HS; NT / n threads per row, summed in a fixed order.
+template <int HS, int NT>
 __device__ __forceinline__ void row_dots(float* Dsm, const float* dO, const float* O,
                                          long long row_stride, int pos0,
                                          int n, int S) {
@@ -192,7 +205,7 @@ __device__ __forceinline__ void row_dots(float* Dsm, const float* dO, const floa
   if (pos < S) {
     const float* a = dO + (long long)pos * row_stride;
     const float* b = O + (long long)pos * row_stride;
-    for (int d = 4 * part; d < HD; d += 4 * tpr) {
+    for (int d = 4 * part; d < HS; d += 4 * tpr) {
       const float4 x = load4(a + d), y = load4(b + d);
       acc = fmaf(x.x, y.x, acc);
       acc = fmaf(x.y, y.y, acc);
@@ -220,13 +233,14 @@ __device__ __forceinline__ void kv_band(int q_lo, int q_hi, int Sk,
 
 // ------------------------------------------------------------------ forward
 // grid: B * KV * G * ceil(Sq / R) blocks of 16 TY threads.
-template <int HD, int TY>
+template <int HS, int TY>
 __global__ void __launch_bounds__(16 * TY)
 fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, int Sq, int Sk, int KV, int G,
                int window, int causal, float scale) {
-  constexpr int NT = 16 * TY, R = 4 * TY, NE = HD / 64, LD = HD + 4;
+  constexpr int HD = padded(HS), NT = 16 * TY, R = 4 * TY, NE = HD / 64;
+  constexpr int LD = HD + 4;
   extern __shared__ float smem[];
   float* qT = smem;                    // [HD][R]
   float* kv = qT + HD * R;             // [COLS][LD]: K, then V
@@ -241,12 +255,12 @@ fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int q_lo = qt * R;
   const int q_hi = min(q_lo + R, Sq) - 1;
-  const long long qstride = (long long)KV * G * HD;
-  const long long kstride = (long long)KV * HD;
-  const long long qoff = ((long long)b * Sq * KV + h) * G * HD + (long long)g * HD;
-  const long long koff = ((long long)b * Sk * KV + h) * HD;
+  const long long qstride = (long long)KV * G * HS;
+  const long long kstride = (long long)KV * HS;
+  const long long qoff = ((long long)b * Sq * KV + h) * G * HS + (long long)g * HS;
+  const long long koff = ((long long)b * Sk * KV + h) * HS;
 
-  load_rows_t<HD, NT>(qT, q + qoff, qstride, q_lo, R, Sq);
+  load_rows_t<HD, NT, HS>(qT, q + qoff, qstride, q_lo, R, Sq);
 
   float m[4], l[4], acc[4][HD / 16];
 #pragma unroll
@@ -262,7 +276,7 @@ fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = first; kt <= last; ++kt) {
     const int k_lo = kt * COLS;
     __syncthreads();                       // kv and pT free
-    load_rows<HD, NT>(kv, k + koff, kstride, k_lo, COLS, Sk);
+    load_rows<HD, NT, HS>(kv, k + koff, kstride, k_lo, COLS, Sk);
     __syncthreads();
     float s[4][4] = {};
     tile_dot<HD, R>(s, qT, kv, ty, tx);
@@ -292,7 +306,7 @@ fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     store_tile_t<R>(pT, s, ty, tx);
     __syncthreads();                       // K read, P written
-    load_rows<HD, NT>(kv, v + koff, kstride, k_lo, COLS, Sk);
+    load_rows<HD, NT, HS>(kv, v + koff, kstride, k_lo, COLS, Sk);
     __syncthreads();
     tile_acc<HD, R>(acc, pT, kv, ty, tx);
   }
@@ -304,10 +318,12 @@ fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l[r], 1e-30f);
     float* dst = o + qoff + (long long)qpos * qstride + 4 * tx;
 #pragma unroll
-    for (int e = 0; e < NE; ++e)
+    for (int e = 0; e < NE; ++e) {
+      if (HS != HD && 64 * e + 4 * tx >= HS) continue;  // padded columns
       store4(dst + 64 * e,
              make_float4(acc[r][4 * e] / den, acc[r][4 * e + 1] / den,
                          acc[r][4 * e + 2] / den, acc[r][4 * e + 3] / den));
+    }
     if (tx == 0)
       lse[(((long long)b * KV + h) * G + g) * Sq + qpos] = m[r] + logf(l[r]);
   }
@@ -315,14 +331,15 @@ fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // --------------------------------------------------------------- backward
 // dQ. grid: B * KV * G * ceil(Sq / R) blocks of 16 TY threads.
-template <int HD, int TY>
+template <int HS, int TY>
 __global__ void __launch_bounds__(16 * TY)
 fp32_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
                   const float* __restrict__ k, const float* __restrict__ v,
                   const float* __restrict__ o, const float* __restrict__ lse,
                   float* __restrict__ dq, int Sq, int Sk, int KV, int G,
                   int window, int causal, float scale) {
-  constexpr int NT = 16 * TY, R = 4 * TY, NE = HD / 64, LD = HD + 4;
+  constexpr int HD = padded(HS), NT = 16 * TY, R = 4 * TY, NE = HD / 64;
+  constexpr int LD = HD + 4;
   extern __shared__ float smem[];
   float* qT = smem;                    // [HD][R]
   float* doT = qT + HD * R;            // [HD][R]
@@ -339,15 +356,15 @@ fp32_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int q_lo = qt * R;
   const int q_hi = min(q_lo + R, Sq) - 1;
-  const long long qstride = (long long)KV * G * HD;
-  const long long kstride = (long long)KV * HD;
-  const long long qoff = ((long long)b * Sq * KV + h) * G * HD + (long long)g * HD;
-  const long long koff = ((long long)b * Sk * KV + h) * HD;
+  const long long qstride = (long long)KV * G * HS;
+  const long long kstride = (long long)KV * HS;
+  const long long qoff = ((long long)b * Sq * KV + h) * G * HS + (long long)g * HS;
+  const long long koff = ((long long)b * Sk * KV + h) * HS;
   const float* lrow = lse + (((long long)b * KV + h) * G + g) * Sq;
 
-  load_rows_t<HD, NT>(qT, q + qoff, qstride, q_lo, R, Sq);
-  load_rows_t<HD, NT>(doT, dout + qoff, qstride, q_lo, R, Sq);
-  row_dots<HD, NT>(Dsm, dout + qoff, o + qoff, qstride, q_lo, R, Sq);
+  load_rows_t<HD, NT, HS>(qT, q + qoff, qstride, q_lo, R, Sq);
+  load_rows_t<HD, NT, HS>(doT, dout + qoff, qstride, q_lo, R, Sq);
+  row_dots<HS, NT>(Dsm, dout + qoff, o + qoff, qstride, q_lo, R, Sq);
   __syncthreads();
   float Lr[4], Dr[4], acc[4][HD / 16];
 #pragma unroll
@@ -364,12 +381,12 @@ fp32_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
   for (int kt = first; kt <= last; ++kt) {
     const int k_lo = kt * COLS;
     __syncthreads();                       // kv and pT free
-    load_rows<HD, NT>(kv, v + koff, kstride, k_lo, COLS, Sk);
+    load_rows<HD, NT, HS>(kv, v + koff, kstride, k_lo, COLS, Sk);
     __syncthreads();
     float dp[4][4] = {};
     tile_dot<HD, R>(dp, doT, kv, ty, tx);  // dP = dO V^T
     __syncthreads();                       // V read
-    load_rows<HD, NT>(kv, k + koff, kstride, k_lo, COLS, Sk);
+    load_rows<HD, NT, HS>(kv, k + koff, kstride, k_lo, COLS, Sk);
     __syncthreads();
     float s[4][4] = {};
     tile_dot<HD, R>(s, qT, kv, ty, tx);    // S = Q K^T
@@ -395,24 +412,27 @@ fp32_dq_kernel(const float* __restrict__ dout, const float* __restrict__ q,
     if (qpos >= Sq) continue;
     float* dst = dq + qoff + (long long)qpos * qstride + 4 * tx;
 #pragma unroll
-    for (int e = 0; e < NE; ++e)
+    for (int e = 0; e < NE; ++e) {
+      if (HS != HD && 64 * e + 4 * tx >= HS) continue;
       store4(dst + 64 * e,
              make_float4(acc[r][4 * e] * scale, acc[r][4 * e + 1] * scale,
                          acc[r][4 * e + 2] * scale,
                          acc[r][4 * e + 3] * scale));
+    }
   }
 }
 
 // dK and dV. grid: B * KV * ceil(Sk / R) blocks of 16 TY threads; the
 // block's rows are KV positions, its score columns query positions.
-template <int HD, int TY>
+template <int HS, int TY>
 __global__ void __launch_bounds__(16 * TY)
 fp32_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ q,
                     const float* __restrict__ k, const float* __restrict__ v,
                     const float* __restrict__ o, const float* __restrict__ lse,
                     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
                     int KV, int G, int window, int causal, float scale) {
-  constexpr int NT = 16 * TY, R = 4 * TY, NE = HD / 64, LD = HD + 4;
+  constexpr int HD = padded(HS), NT = 16 * TY, R = 4 * TY, NE = HD / 64;
+  constexpr int LD = HD + 4;
   extern __shared__ float smem[];
   float* kT = smem;                    // [HD][R]
   float* vT = kT + HD * R;             // [HD][R]
@@ -431,12 +451,12 @@ fp32_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ q,
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int k_lo = kt * R;
   const int k_hi = min(k_lo + R, Sk) - 1;
-  const long long qstride = (long long)KV * G * HD;
-  const long long kstride = (long long)KV * HD;
-  const long long koff = ((long long)b * Sk * KV + h) * HD;
+  const long long qstride = (long long)KV * G * HS;
+  const long long kstride = (long long)KV * HS;
+  const long long koff = ((long long)b * Sk * KV + h) * HS;
 
-  load_rows_t<HD, NT>(kT, k + koff, kstride, k_lo, R, Sk);
-  load_rows_t<HD, NT>(vT, v + koff, kstride, k_lo, R, Sk);
+  load_rows_t<HD, NT, HS>(kT, k + koff, kstride, k_lo, R, Sk);
+  load_rows_t<HD, NT, HS>(vT, v + koff, kstride, k_lo, R, Sk);
   float dK[4][HD / 16], dV[4][HD / 16];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -453,14 +473,14 @@ fp32_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ q,
 
   for (int g = 0; g < G; ++g) {
     const long long qoff =
-        ((long long)b * Sq * KV + h) * G * HD + (long long)g * HD;
+        ((long long)b * Sq * KV + h) * G * HS + (long long)g * HS;
     const float* lrow = lse + (((long long)b * KV + h) * G + g) * Sq;
     for (int it = first; it <= last; ++it) {
       const int q_lo = it * COLS;
       __syncthreads();                     // qn, don, pT, dsT free
-      load_rows<HD, NT>(qn, q + qoff, qstride, q_lo, COLS, Sq);
-      load_rows<HD, NT>(don, dout + qoff, qstride, q_lo, COLS, Sq);
-      row_dots<HD, NT>(Dsm, dout + qoff, o + qoff, qstride, q_lo, COLS,
+      load_rows<HD, NT, HS>(qn, q + qoff, qstride, q_lo, COLS, Sq);
+      load_rows<HD, NT, HS>(don, dout + qoff, qstride, q_lo, COLS, Sq);
+      row_dots<HS, NT>(Dsm, dout + qoff, o + qoff, qstride, q_lo, COLS,
                           Sq);
       for (int i = threadIdx.x; i < COLS; i += NT)
         Lsm[i] = q_lo + i < Sq ? lrow[q_lo + i] : 0.f;
@@ -498,6 +518,7 @@ fp32_dkdv_kernel(const float* __restrict__ dout, const float* __restrict__ q,
     float* dstv = dv + koff + (long long)kpos * kstride + 4 * tx;
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
+      if (HS != HD && 64 * e + 4 * tx >= HS) continue;
       store4(dstk + 64 * e,
              make_float4(dK[r][4 * e] * scale, dK[r][4 * e + 1] * scale,
                          dK[r][4 * e + 2] * scale, dK[r][4 * e + 3] * scale));
@@ -519,47 +540,47 @@ static cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int HD>
+template <int HS>
 static cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int Sq, int Sk,
                               int KV, int G, int window, int causal,
                               float scale, cudaStream_t stream) {
-  constexpr int TY = FWD_TY, R = 4 * TY;
+  constexpr int HD = padded(HS), TY = FWD_TY, R = 4 * TY;
   const size_t smem =
       sizeof(float) * (HD * R + COLS * (HD + 4) + COLS * (R + 4));
-  cudaError_t e = allow_smem(fp32_fwd_kernel<HD, TY>, smem);
+  cudaError_t e = allow_smem(fp32_fwd_kernel<HS, TY>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)B * KV * G * ((Sq + R - 1) / R);
-  fp32_fwd_kernel<HD, TY><<<(unsigned)blocks, 16 * TY, smem, stream>>>(
+  fp32_fwd_kernel<HS, TY><<<(unsigned)blocks, 16 * TY, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
       Sk, KV, G, window, causal, scale);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HS>
 static cudaError_t launch_bwd(const void* dout, const void* q, const void* k,
                               const void* v, const void* o, const float* lse,
                               void* dq, void* dk, void* dv, int B, int Sq,
                               int Sk, int KV, int G, int window, int causal,
                               float scale, cudaStream_t stream) {
-  constexpr int TY = BwdTY<HD>::value, R = 4 * TY;
+  constexpr int HD = padded(HS), TY = BwdTY<HD>::value, R = 4 * TY;
   const size_t smem_dq = sizeof(float) *
       (2 * HD * R + COLS * (HD + 4) + COLS * (R + 4) + R);
   const size_t smem_dkdv = sizeof(float) *
       (2 * HD * R + 2 * COLS * (HD + 4) + 2 * COLS * (R + 4) + 2 * COLS);
-  cudaError_t e = allow_smem(fp32_dq_kernel<HD, TY>, smem_dq);
+  cudaError_t e = allow_smem(fp32_dq_kernel<HS, TY>, smem_dq);
   if (e != cudaSuccess) return e;
-  e = allow_smem(fp32_dkdv_kernel<HD, TY>, smem_dkdv);
+  e = allow_smem(fp32_dkdv_kernel<HS, TY>, smem_dkdv);
   if (e != cudaSuccess) return e;
   const long long nq = (Sq + R - 1) / R, nk = (Sk + R - 1) / R;
-  fp32_dq_kernel<HD, TY>
+  fp32_dq_kernel<HS, TY>
       <<<(unsigned)((long long)B * KV * G * nq), 16 * TY, smem_dq, stream>>>(
           (const float*)dout, (const float*)q, (const float*)k,
           (const float*)v, (const float*)o, lse, (float*)dq, Sq, Sk, KV, G,
           window, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  fp32_dkdv_kernel<HD, TY>
+  fp32_dkdv_kernel<HS, TY>
       <<<(unsigned)((long long)B * KV * nk), 16 * TY, smem_dkdv, stream>>>(
           (const float*)dout, (const float*)q, (const float*)k,
           (const float*)v, (const float*)o, lse, (float*)dk, (float*)dv, Sq,
@@ -568,7 +589,7 @@ static cudaError_t launch_bwd(const void* dout, const void* q, const void* k,
 }
 
 // dtype must be 0 (float32): bfloat16 inputs go to swa_flash_bf16.cu.
-// hd: 64, 128 or 256.
+// hd: 64, 128 or 256, or 80, 96 or 112 on the hd-128 tiles (padded).
 extern "C" int reft_swa_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int B, int Sq, int Sk,
                             int KV, int G, int hd, int window, int causal,
@@ -584,6 +605,9 @@ extern "C" int reft_swa_fwd(const void* q, const void* k, const void* v,
   if (hd == 64) e = launch_fwd<64>(FWD_ARGS);
   else if (hd == 128) e = launch_fwd<128>(FWD_ARGS);
   else if (hd == 256) e = launch_fwd<256>(FWD_ARGS);
+  else if (hd == 80) e = launch_fwd<80>(FWD_ARGS);
+  else if (hd == 96) e = launch_fwd<96>(FWD_ARGS);
+  else if (hd == 112) e = launch_fwd<112>(FWD_ARGS);
   else return (int)cudaErrorInvalidValue;
 #undef FWD_ARGS
   return (int)e;
@@ -605,6 +629,9 @@ extern "C" int reft_swa_bwd(const void* dout, const void* q, const void* k,
   if (hd == 64) e = launch_bwd<64>(BWD_ARGS);
   else if (hd == 128) e = launch_bwd<128>(BWD_ARGS);
   else if (hd == 256) e = launch_bwd<256>(BWD_ARGS);
+  else if (hd == 80) e = launch_bwd<80>(BWD_ARGS);
+  else if (hd == 96) e = launch_bwd<96>(BWD_ARGS);
+  else if (hd == 112) e = launch_bwd<112>(BWD_ARGS);
   else return (int)cudaErrorInvalidValue;
 #undef BWD_ARGS
   return (int)e;

@@ -28,6 +28,13 @@
 //   fit in registers).
 // * TMA boxes are 64 columns (128 bytes) wide with the 128-byte swizzle;
 //   a tile of hd columns is hd / 64 such boxes, one after the other. A
+//   head width that is a multiple of 16 but not of 64 (80, 96, 112) runs
+//   the kernels of the next multiple of 64 (HD = padded(hd) = 128): the
+//   tensor maps keep the real hd as the row's extent and stride, so the
+//   last box reads past hd and TMA fills those columns with zeros; every
+//   product over HD columns is then the product over hd, and the stores
+//   write only the first hd columns of each row (1.6x the tensor-core
+//   work at hd 80, 1.14x at 112). The scale is the wrapper's hd^-0.5. A
 //   wgmma operand whose contraction runs along hd (Q, K, V, dO as the
 //   rows of S = Q K^T and its kin) is K-major; one whose contraction runs
 //   along the tile's rows (V in P V, K in dS K, dO in P^T dO, Q in dS^T Q)
@@ -59,6 +66,13 @@ template <int HD> struct Geo;  // fwd_cols: keys per forward ring tile;
 template <> struct Geo<64> { static constexpr int fwd_cols = 128, dq_cols = 64, dkdv_rows = 128; };
 template <> struct Geo<128> { static constexpr int fwd_cols = 128, dq_cols = 64, dkdv_rows = 128; };
 template <> struct Geo<256> { static constexpr int fwd_cols = 64, dq_cols = 32, dkdv_rows = 64; };
+// padded widths: the hd-128 kernels' tiles, on zero-filled columns
+template <> struct Geo<80> { static constexpr int fwd_cols = 128, dq_cols = 64, dkdv_rows = 128; };
+template <> struct Geo<96> { static constexpr int fwd_cols = 128, dq_cols = 64, dkdv_rows = 128; };
+template <> struct Geo<112> { static constexpr int fwd_cols = 128, dq_cols = 64, dkdv_rows = 128; };
+
+// the width the products run at: hd rounded up to whole 64-column boxes
+__host__ __device__ constexpr int padded(int hd) { return (hd + 63) / 64 * 64; }
 
 #define NEG_INF (-1e30f)
 #define LOG2E 1.4426950408889634f
@@ -375,14 +389,14 @@ template <> struct Wgmma<128> {
 // --------------------------------------------------------------- forward
 // grid: B * KV * G * ceil(Sq / FWD_ROWS) blocks of THREADS threads. Ring
 // slot i % STAGES holds key tile first + i (C rows) of K and of V.
-template <int HD>
+template <int HS>
 __global__ void __launch_bounds__(THREADS, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
            float* __restrict__ lse, int Sq, int Sk, int KV, int G,
            int window, int causal, float scale) {
-  constexpr int C = Geo<HD>::fwd_cols, NB = HD / 64;
+  constexpr int HD = padded(HS), C = Geo<HS>::fwd_cols, NB = HD / 64;
   constexpr int ON = HD < 128 ? HD : 128, NO = HD / ON;  // O in N-chunks
   constexpr uint32_t QBYTES = FWD_ROWS * HD * 2, TBYTES = C * HD * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -540,14 +554,16 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
     if (qpos >= Sq) continue;
     const float l = half ? lb : la, m = half ? mb : ma;
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    bf16* dst = o + (((long long)b * Sq + qpos) * H + h) * HD + 2 * t4;
+    bf16* dst = o + (((long long)b * Sq + qpos) * H + h) * HS + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int i = 0; i < ON / 8; ++i)
+      for (int i = 0; i < ON / 8; ++i) {
+        if (n * ON + 8 * i >= HS) continue;       // padded columns
         *reinterpret_cast<uint32_t*>(dst + n * ON + 8 * i) =
             pack_bf16(oacc[n][4 * i + 2 * half] * inv,
                       oacc[n][4 * i + 2 * half + 1] * inv);
+      }
     if (t4 == 0)
       lse[((long long)b * H + h) * Sq + qpos] = (m + log2f(l)) * LN2;
   }
@@ -555,19 +571,20 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------------ backward
 // D = rowsum(dO o O) in fp32, once a row: D[(b H + h) Sq + i] for row
-// (b, i, h) of the (B, Sq, H, hd) arrays; hd / 16 threads a row.
-template <int HD>
+// (b, i, h) of the (B, Sq, H, hd) arrays; padded(hd) / 16 threads a row,
+// those past hd adding nothing.
+template <int HS>
 __global__ void __launch_bounds__(256)
 dot_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ o,
            float* __restrict__ D, long long rows, int Sq, int H) {
-  constexpr int TPR = HD / 16;
+  constexpr int TPR = padded(HS) / 16;
   const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long r = gt / TPR;
   const int part = (int)(gt % TPR);
   float acc = 0.f;
-  if (r < rows) {
-    const uint4* x = reinterpret_cast<const uint4*>(dout + r * HD + 16 * part);
-    const uint4* y = reinterpret_cast<const uint4*>(o + r * HD + 16 * part);
+  if (r < rows && 16 * part < HS) {
+    const uint4* x = reinterpret_cast<const uint4*>(dout + r * HS + 16 * part);
+    const uint4* y = reinterpret_cast<const uint4*>(o + r * HS + 16 * part);
 #pragma unroll
     for (int v = 0; v < 2; ++v) {
       const uint4 a = x[v], c = y[v];
@@ -595,7 +612,7 @@ dot_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ o,
 // dQ. grid: B * KV * G * ceil(Sq / DQ_ROWS) blocks of THREADS threads; ring
 // slot i % STAGES holds key tile first + i (C rows) of K and of V.
 // dQ = scale sum_tiles dS K, dS = P o (dO V^T - D), P = exp(s - lse).
-template <int HD>
+template <int HS>
 __global__ void __launch_bounds__(THREADS, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tdo,
@@ -604,7 +621,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
           const float* __restrict__ lse, const float* __restrict__ Dbuf,
           bf16* __restrict__ dq, int Sq, int Sk, int KV, int G, int window,
           int causal, float scale) {
-  constexpr int C = Geo<HD>::dq_cols, NB = HD / 64;
+  constexpr int HD = padded(HS), C = Geo<HS>::dq_cols, NB = HD / 64;
   constexpr int ON = HD < 128 ? HD : 128, NO = HD / ON;
   constexpr uint32_t QBYTES = DQ_ROWS * HD * 2, TBYTES = C * HD * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -751,14 +768,16 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
   for (int half = 0; half < 2; ++half) {
     const int qpos = half ? qb : qa;
     if (qpos >= Sq) continue;
-    bf16* dst = dq + (((long long)b * Sq + qpos) * H + h) * HD + 2 * t4;
+    bf16* dst = dq + (((long long)b * Sq + qpos) * H + h) * HS + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int i = 0; i < ON / 8; ++i)
+      for (int i = 0; i < ON / 8; ++i) {
+        if (n * ON + 8 * i >= HS) continue;
         *reinterpret_cast<uint32_t*>(dst + n * ON + 8 * i) =
             pack_bf16(acc[n][4 * i + 2 * half] * scale,
                       acc[n][4 * i + 2 * half + 1] * scale);
+      }
   }
 }
 
@@ -768,7 +787,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq,
 // lse (log2 units) and D. Rows of the block's scores are key positions,
 // columns query positions: S^T = K Q^T, dP^T = V dO^T, P^T, dS^T; dV +=
 // P^T dO, dK += dS^T Q; dK = scale dK.
-template <int HD>
+template <int HS>
 __global__ void __launch_bounds__(THREADS, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tdo,
@@ -777,7 +796,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
             const float* __restrict__ lse, const float* __restrict__ Dbuf,
             bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
             int KV, int G, int window, int causal, float scale) {
-  constexpr int R = Geo<HD>::dkdv_rows, CQ = DKDV_COLS, NB = HD / 64;
+  constexpr int HD = padded(HS), R = Geo<HS>::dkdv_rows, CQ = DKDV_COLS;
+  constexpr int NB = HD / 64;
   // at hd 256 the two consumers own the same 64 rows, 128 columns each
   constexpr bool SPLIT = HD == 256;
   constexpr int NCOL = SPLIT ? HD / 2 : HD;
@@ -935,10 +955,11 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   for (int half = 0; half < 2; ++half) {
     const int kpos = half ? kb : ka;
     if (kpos >= Sk) continue;
-    const long long off = (((long long)b * Sk + kpos) * KV + kv) * HD + col0 +
+    const long long off = (((long long)b * Sk + kpos) * KV + kv) * HS + col0 +
                           2 * t4;
 #pragma unroll
     for (int i = 0; i < NCOL / 8; ++i) {
+      if (col0 + 8 * i >= HS) continue;           // padded columns
       *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
           pack_bf16(dK[4 * i + 2 * half] * scale,
                     dK[4 * i + 2 * half + 1] * scale);
@@ -981,7 +1002,8 @@ static EncodeTiled encode_tiled() {
 }
 
 // a (B, S, heads, hd) bf16 array read in boxes of {64 columns, 1 head, rows
-// rows, 1 batch}, 128-byte swizzle; rows past S read as zeros
+// rows, 1 batch}, 128-byte swizzle; rows past S, and columns past hd (the
+// last box of a padded width), read as zeros
 static int make_map(CUtensorMap* m, const void* base, int B, int S,
                     int heads, int hd, int rows) {
   EncodeTiled fn = encode_tiled();
@@ -1015,67 +1037,69 @@ static int set_smem(K kernel, size_t* smem) {
     if (rc_ != 0) return rc_;  \
   } while (0)
 
-template <int HD>
+template <int HS>
 static int launch_fwd(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Sq, int Sk, int KV, int G,
                       int window, int causal, float scale,
                       cudaStream_t stream) {
-  constexpr int C = Geo<HD>::fwd_cols;
+  constexpr int HD = padded(HS), C = Geo<HS>::fwd_cols;
   CUtensorMap tq, tk, tv;
-  TRY(make_map(&tq, q, B, Sq, KV * G, HD, FWD_ROWS));
-  TRY(make_map(&tk, k, B, Sk, KV, HD, C));
-  TRY(make_map(&tv, v, B, Sk, KV, HD, C));
+  TRY(make_map(&tq, q, B, Sq, KV * G, HS, FWD_ROWS));
+  TRY(make_map(&tk, k, B, Sk, KV, HS, C));
+  TRY(make_map(&tv, v, B, Sk, KV, HS, C));
   size_t smem = 1024 + FWD_ROWS * HD * 2 + 2 * STAGES * C * HD * 2 + 256;
-  TRY(set_smem(fwd_kernel<HD>, &smem));
+  TRY(set_smem(fwd_kernel<HS>, &smem));
   const long long blocks =
       (long long)B * KV * G * ((Sq + FWD_ROWS - 1) / FWD_ROWS);
-  fwd_kernel<HD><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  fwd_kernel<HS><<<(unsigned)blocks, THREADS, smem, stream>>>(
       tq, tk, tv, (bf16*)o, lse, Sq, Sk, KV, G, window, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HS>
 static int launch_bwd(const void* dout, const void* q, const void* k,
                       const void* v, const void* o, const float* lse,
                       float* D, void* dq, void* dk, void* dv, int B, int Sq,
                       int Sk, int KV, int G, int window, int causal,
                       float scale, cudaStream_t stream) {
+  constexpr int HD = padded(HS);
   const long long rows = (long long)B * Sq * KV * G;
   const long long threads = rows * (HD / 16);
-  dot_kernel<HD><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+  dot_kernel<HS><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
       (const bf16*)dout, (const bf16*)o, D, rows, Sq, KV * G);
   TRY((int)cudaGetLastError());
 
-  constexpr int C = Geo<HD>::dq_cols, R = Geo<HD>::dkdv_rows;
+  constexpr int C = Geo<HS>::dq_cols, R = Geo<HS>::dkdv_rows;
   CUtensorMap tq, tdo, tk, tv;
-  TRY(make_map(&tq, q, B, Sq, KV * G, HD, DQ_ROWS));
-  TRY(make_map(&tdo, dout, B, Sq, KV * G, HD, DQ_ROWS));
-  TRY(make_map(&tk, k, B, Sk, KV, HD, C));
-  TRY(make_map(&tv, v, B, Sk, KV, HD, C));
+  TRY(make_map(&tq, q, B, Sq, KV * G, HS, DQ_ROWS));
+  TRY(make_map(&tdo, dout, B, Sq, KV * G, HS, DQ_ROWS));
+  TRY(make_map(&tk, k, B, Sk, KV, HS, C));
+  TRY(make_map(&tv, v, B, Sk, KV, HS, C));
   size_t smem = 1024 + 2 * DQ_ROWS * HD * 2 + 2 * STAGES * C * HD * 2 + 256;
-  TRY(set_smem(dq_kernel<HD>, &smem));
+  TRY(set_smem(dq_kernel<HS>, &smem));
   const long long nq = (Sq + DQ_ROWS - 1) / DQ_ROWS;
-  dq_kernel<HD><<<(unsigned)((long long)B * KV * G * nq), THREADS, smem,
+  dq_kernel<HS><<<(unsigned)((long long)B * KV * G * nq), THREADS, smem,
                   stream>>>(tq, tdo, tk, tv, lse, D, (bf16*)dq, Sq, Sk, KV,
                             G, window, causal, scale);
   TRY((int)cudaGetLastError());
 
-  TRY(make_map(&tq, q, B, Sq, KV * G, HD, DKDV_COLS));
-  TRY(make_map(&tdo, dout, B, Sq, KV * G, HD, DKDV_COLS));
-  TRY(make_map(&tk, k, B, Sk, KV, HD, R));
-  TRY(make_map(&tv, v, B, Sk, KV, HD, R));
+  TRY(make_map(&tq, q, B, Sq, KV * G, HS, DKDV_COLS));
+  TRY(make_map(&tdo, dout, B, Sq, KV * G, HS, DKDV_COLS));
+  TRY(make_map(&tk, k, B, Sk, KV, HS, R));
+  TRY(make_map(&tv, v, B, Sk, KV, HS, R));
   smem = 1024 + 2 * R * HD * 2 + 2 * STAGES * DKDV_COLS * HD * 2 +
          2 * STAGES * DKDV_COLS * 4 + 256;
-  TRY(set_smem(dkdv_kernel<HD>, &smem));
+  TRY(set_smem(dkdv_kernel<HS>, &smem));
   const long long nk = (Sk + R - 1) / R;
-  dkdv_kernel<HD><<<(unsigned)((long long)B * KV * nk), THREADS, smem,
+  dkdv_kernel<HS><<<(unsigned)((long long)B * KV * nk), THREADS, smem,
                     stream>>>(tq, tdo, tk, tv, lse, D, (bf16*)dk, (bf16*)dv,
                               Sq, Sk, KV, G, window, causal, scale);
   return (int)cudaGetLastError();
 }
 
 // The entry points have the fp32 library's names and arguments (the
-// backward adds D); dtype must be 1 (bfloat16). hd: 64, 128 or 256.
+// backward adds D); dtype must be 1 (bfloat16). hd: 64, 128 or 256, or
+// 80, 96 or 112 on the hd-128 kernels (padded).
 extern "C" int reft_swa_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int B, int Sq, int Sk,
                                  int KV, int G, int hd, int window,
@@ -1090,6 +1114,9 @@ extern "C" int reft_swa_fwd(const void* q, const void* k, const void* v,
   if (hd == 64) return launch_fwd<64>(FWD_ARGS);
   if (hd == 128) return launch_fwd<128>(FWD_ARGS);
   if (hd == 256) return launch_fwd<256>(FWD_ARGS);
+  if (hd == 80) return launch_fwd<80>(FWD_ARGS);
+  if (hd == 96) return launch_fwd<96>(FWD_ARGS);
+  if (hd == 112) return launch_fwd<112>(FWD_ARGS);
 #undef FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -1111,6 +1138,9 @@ extern "C" int reft_swa_bwd(const void* dout, const void* q,
   if (hd == 64) return launch_bwd<64>(BWD_ARGS);
   if (hd == 128) return launch_bwd<128>(BWD_ARGS);
   if (hd == 256) return launch_bwd<256>(BWD_ARGS);
+  if (hd == 80) return launch_bwd<80>(BWD_ARGS);
+  if (hd == 96) return launch_bwd<96>(BWD_ARGS);
+  if (hd == 112) return launch_bwd<112>(BWD_ARGS);
 #undef BWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

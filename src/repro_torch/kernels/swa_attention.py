@@ -17,6 +17,12 @@ by the inputs' type:
 * float32: `csrc/swa_flash.cu`, fp32 FMA on the CUDA cores (fp32 on the
   tensor cores would be TF32).
 
+Head widths (`HEAD_DIMS`): 64, 128 and 256 have kernels of their own; 80,
+96 and 112 (hubert-xlarge, phi-3-vision, kimi-k2) run the hd-128 kernels
+of either route on zero-filled columns past hd (TMA's out-of-bounds fill;
+the fp32 loads' own), storing hd columns a row, with the scale hd ** -0.5
+of the real width: 128 / hd times the products of a kernel at hd.
+
 Contract (the reference's): q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), float32
 or bfloat16, all of one type; query head h = kv*G + g; the output is
 (B,Sq,KV,G,hd) in q's type. Query position i sees key position j when
@@ -45,19 +51,22 @@ from repro_torch.models.layers import FULL_WINDOW
 FP32_COLS = 64                 # score-tile columns: KV (forward, dQ) or
                                # query (dK/dV) positions per tile
 FP32_ROWS = 64                 # query rows per forward block (4 * FWD_TY)
-FP32_BWD_ROWS = {64: 64, 128: 64, 256: 32}   # rows per backward block
+FP32_BWD_ROWS = {64: 64, 80: 64, 96: 64, 112: 64, 128: 64,
+                 256: 32}      # rows per backward block
 # Geometry of the bf16 kernels; each must equal its counterpart in
 # csrc/swa_flash_bf16.cu (STAGES, FWD_ROWS, DQ_ROWS, DKDV_COLS, Geo<hd>).
 BF16_STAGES = 2                # ring slots of every kernel
 BF16_FWD_ROWS = 128            # query rows per forward block
 BF16_DQ_ROWS = 128             # query rows per dQ block
 BF16_DKDV_COLS = 64            # query rows per dK/dV ring tile
+_HD128 = {"fwd_cols": 128, "dq_cols": 64, "dkdv_rows": 128}
 BF16_TILES = {                 # by hd: keys per forward and dQ ring tile,
-    64: {"fwd_cols": 128, "dq_cols": 64, "dkdv_rows": 128},   # KV rows per
-    128: {"fwd_cols": 128, "dq_cols": 64, "dkdv_rows": 128},  # dK/dV block
+    64: _HD128, 80: _HD128,    # KV rows per dK/dV block
+    96: _HD128, 112: _HD128, 128: _HD128,
     256: {"fwd_cols": 64, "dq_cols": 32, "dkdv_rows": 64},
 }
 HEAD_DIMS = tuple(BF16_TILES)
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -196,8 +196,10 @@ class _Accounting(TorchDispatchMode):
                 self.bytes_accessed += sum(map(_nbytes, ins)) \
                     + sum(map(_nbytes, outs))
         extra = _workspace(func, args) if ns == "repro_torch" else 0
+        # outputs on a storage already live (views) allocate nothing
+        fresh = [o for o in outs if id(o.untyped_storage()) not in self._alive]
         self.peak = max(self.peak, self.live + extra
-                        + sum(_nbytes(o) for o in outs))
+                        + sum(_nbytes(o) for o in fresh))
         for o in outs:
             self.track(o)
         return out
@@ -318,6 +320,16 @@ def check_ported(cfg) -> None:
         raise NotPorted(str(e)) from None
 
 
+def triage(cfg, shape) -> None:
+    """Raise `NotPorted` for a family the port lacks, then `SkipPair` for
+    a pair the reference skips too (`shape_supported`); return for a
+    pair to trace."""
+    check_ported(cfg)
+    ok, why = shape_supported(cfg, shape)
+    if not ok:
+        raise SkipPair(why)
+
+
 def build_lowered(arch: str, shape_name: str, mesh, verbose=False,
                   cfg=None):
     """Returns (lowered, meta) for the (arch, shape) pair on `mesh`. The
@@ -325,10 +337,7 @@ def build_lowered(arch: str, shape_name: str, mesh, verbose=False,
     reference's `unroll=True`; the record says so)."""
     cfg = cfg or get_config(arch)
     shape = INPUT_SHAPES[shape_name]
-    check_ported(cfg)
-    ok, why = shape_supported(cfg, shape)
-    if not ok:
-        raise SkipPair(why)
+    triage(cfg, shape)
 
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     with fake, use_mesh(mesh):
@@ -355,7 +364,10 @@ def build_lowered(arch: str, shape_name: str, mesh, verbose=False,
             train = False
         elif shape.kind == "prefill":
             params = _abstract(cfg, shape)
-            batch = {"tokens": _batch(cfg, shape)["tokens"]}
+            # the prefill's inputs: tokens, and a VLM's patches (the
+            # labels are no argument of logits_fn)
+            batch = {k: v for k, v in _batch(cfg, shape).items()
+                     if k != "labels"}
             p = _as_dtensors(params, SH.named(SH.param_specs(cfg, params),
                                               params, mesh))
             b = _as_dtensors(batch, SH.named(SH.batch_specs(cfg, batch),

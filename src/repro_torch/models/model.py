@@ -1,5 +1,6 @@
 """Model assembly: init / forward / prefill / decode for the dense and SSM
-families.
+families, with the VLM (patch embeddings before the tokens) and audio
+(frame embeddings, no tokens) inputs.
 
 The counterpart of `repro/models/model.py`.  Parameters keep the
 reference's stacked layout — `params["blocks"]["pos0"][...]` leaves of
@@ -35,24 +36,22 @@ from repro_torch.models.ssm import init_ssm, ssm_block, ssm_decode
 def check_supported(cfg: ModelConfig) -> None:
     """Ported: the dense family, with full or sliding-window attention
     (homogeneous as starcoder2, or local and global layers interleaved as
-    gemma3), and the pure SSM family (Mamba2). Any other family raises,
-    naming the ROADMAP item it waits for."""
+    gemma3), the pure SSM family (Mamba2), and dense stacks fed by patch
+    embeddings (VLM: phi-3-vision) or frame embeddings (audio: hubert, an
+    encoder). Any other family raises, naming the ROADMAP item it waits
+    for."""
     if cfg.family == "hybrid":
         why = ("the hybrid family (Jamba) waits for ROADMAP 'The remaining "
                "model families', after MoE")
     elif cfg.num_experts:
         why = "MoE waits for ROADMAP 'The remaining model families'"
-    elif cfg.family == "vlm" or cfg.num_patches:
-        why = "VLM inputs wait for ROADMAP 'The remaining model families'"
-    elif cfg.family == "audio" or cfg.is_encoder or not cfg.embed_inputs:
-        why = "audio inputs wait for ROADMAP 'The remaining model families'"
-    elif cfg.family in ("dense", "ssm"):
+    elif cfg.family in ("dense", "ssm", "vlm", "audio"):
         return
     else:
         why = f"family {cfg.family!r} is unknown"
     raise NotImplementedError(
         f"{cfg.name}: ported are the dense (full or sliding-window "
-        f"attention) and SSM (Mamba2) families; {why}")
+        f"attention), SSM (Mamba2), VLM and audio families; {why}")
 
 
 def window_array(cfg: ModelConfig):
@@ -99,14 +98,21 @@ def _init_layer(cfg: ModelConfig, gen, device):
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device):
+    """The reference's leaves: `embed` when the inputs are tokens,
+    `proj_in` (D, D) when they are embeddings (frames, or patches before
+    the tokens), `lm_head` for an encoder or an untied head."""
     check_supported(cfg)
     pd = pdtype_of(cfg)
     D, V = cfg.d_model, cfg.vocab_size
-    params = {"embed": dense_init(gen, (V, D), pd, device, scale=0.02)}
+    params = {}
+    if cfg.embed_inputs:
+        params["embed"] = dense_init(gen, (V, D), pd, device, scale=0.02)
+    if not cfg.embed_inputs or cfg.num_patches:
+        params["proj_in"] = dense_init(gen, (D, D), pd, device)
     params["blocks"] = {"pos0": _stack([_init_layer(cfg, gen, device)
                                         for _ in range(cfg.num_layers)])}
     params["final_norm"] = init_rms(D, pd, device)
-    if not cfg.tie_embeddings:
+    if cfg.is_encoder or not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (D, V), pd, device)
     return params
 
@@ -168,6 +174,28 @@ def _embed(cfg, params, tokens):
     return lookup(params["embed"], tokens.long()).to(dtype_of(cfg))
 
 
+def embed_batch(cfg: ModelConfig, params, batch):
+    """-> (x (B,S,D), labels, loss mask or None). VLM: the patches through
+    `proj_in`, then the tokens' embeddings, and a mask that is False over
+    the patch positions (built from the labels, so it keeps their
+    sharding); audio: the frames through `proj_in` (and the batch's own
+    mask, if any); text: the tokens' embeddings."""
+    dt = dtype_of(cfg)
+    labels = batch.get("labels")
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(dt) @ params["proj_in"]
+        x = torch.cat([patches, _embed(cfg, params, batch["tokens"])], 1)
+        n = patches.shape[1]
+        mask = None if labels is None else torch.cat(
+            [torch.zeros_like(labels[:, :n], dtype=torch.bool),
+             torch.ones_like(labels[:, n:], dtype=torch.bool)], 1)
+        return x, labels, mask
+    if not cfg.embed_inputs:                    # audio frames
+        return batch["frames"].to(dt) @ params["proj_in"], labels, \
+            batch.get("mask")
+    return _embed(cfg, params, batch["tokens"]), labels, None
+
+
 def _lm_head_w(params):
     return params["lm_head"] if "lm_head" in params else params["embed"].T
 
@@ -177,18 +205,18 @@ def forward(cfg: ModelConfig, params, batch, *, collect_cache=False,
     """Full-sequence forward. Returns (loss, aux_dict); with
     `collect_cache`, aux_dict["cache"] holds the per-layer caches."""
     check_supported(cfg)
-    h = _embed(cfg, params, batch["tokens"])
-    labels = batch["labels"]
+    h, labels, mask = embed_batch(cfg, params, batch)
     remat = cfg.remat if remat is None else remat
     h, caches = _run_blocks(cfg, params, h, collect_cache=collect_cache,
                             remat=remat)
     h = rms_norm(h, params["final_norm"])
     w_out = _lm_head_w(params)
     if cfg.chunked_ce:
-        loss = chunked_cross_entropy(h, w_out, labels, cfg.chunked_ce)
+        loss = chunked_cross_entropy(h, w_out, labels, cfg.chunked_ce,
+                                     mask)
     else:
         logits = shard(h @ w_out, P(("pod", "data"), None, "model"))
-        loss = cross_entropy(logits, labels)
+        loss = cross_entropy(logits, labels, mask)
     out = {"loss": loss}
     if collect_cache:
         out["cache"] = caches
@@ -201,7 +229,7 @@ def logits_fn(cfg: ModelConfig, params, batch):
     """Last-position logits (B, 1, V) and the per-layer caches, stacked
     like the params (prefill)."""
     check_supported(cfg)
-    h, caches = _run_blocks(cfg, params, _embed(cfg, params, batch["tokens"]),
+    h, caches = _run_blocks(cfg, params, embed_batch(cfg, params, batch)[0],
                             collect_cache=True, remat=False)
     h = rms_norm(h[:, -1:, :], params["final_norm"])
     return h @ _lm_head_w(params), caches
@@ -260,7 +288,9 @@ def _layer_decode(cfg, p, h, window, index, entry):
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One decode step. tokens: (B, 1) integer -> (logits (B,1,V), cache):
-    the cache given, its entries written in place, with `index + 1`."""
+    the cache given, its entries written in place, with `index + 1`.
+    Tokens only, as the reference's (a VLM's patches enter by the
+    prefill; an encoder has no decode step)."""
     check_supported(cfg)
     L, index = cfg.num_layers, cache["index"]
     h = _embed(cfg, params, tokens)

@@ -1,4 +1,4 @@
-"""Train-step factory and the train state.
+"""Train / eval / prefill / decode step factories and the train state.
 
 The counterpart of `repro/train/steps.py`.  The train state is the exact
 tree REFT snapshots — params + optimizer moments + step + data-RNG key (the
@@ -13,6 +13,7 @@ leaf of the old one, so a snapshot in flight keeps reading step t.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
@@ -56,6 +57,25 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.array(threefry2x32(key, 0, int(data) & _M32), np.uint32)
 
 
+@dataclass
+class TrainState:
+    """The reference's named view of the state tree (`init_train_state`
+    returns the tree itself, the form every step and snapshot takes)."""
+    params: Any
+    opt_state: Any
+    step: Any
+    rng: Any
+
+    def tree(self):
+        return {"params": self.params, "opt_state": self.opt_state,
+                "step": self.step, "rng": self.rng}
+
+    @classmethod
+    def from_tree(cls, t):
+        return cls(params=t["params"], opt_state=t["opt_state"],
+                   step=t["step"], rng=t["rng"])
+
+
 def init_train_state(cfg: ModelConfig, seed: int = 0,
                      device="cuda") -> dict:
     """Fresh state on `device`: weights from a torch.Generator seeded
@@ -69,31 +89,72 @@ def init_train_state(cfg: ModelConfig, seed: int = 0,
             "rng": torch.from_numpy(prng_key(seed + 1)).to(device)}
 
 
+def _value_and_grad(cfg, params, batch):
+    """-> (loss, the gradient of each leaf of `params`, in leaf order)."""
+    leaves = [p.detach().requires_grad_(True) for p in leaf_arrays(params)]
+    loss, _ = M.forward(cfg, tree_unflatten(params, leaves), batch)
+    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+
+
+def _accumulated_grads(cfg, params, batch, microbatches: int):
+    """The reference's `accum_grads`: axis 0 of every batch entry split
+    into `microbatches` equal chunks (an indivisible batch is refused),
+    each chunk's gradients added into fp32 zeros on the params' device,
+    then the loss and the gradients averaged."""
+    def split(x):
+        b = x.shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch of {b} rows does not split into "
+                             f"{microbatches} microbatches")
+        return x.reshape(microbatches, b // microbatches, *x.shape[1:])
+    chunks = {k: split(v) for k, v in batch.items()}
+    leaves = leaf_arrays(params)
+    loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in leaves]
+    for i in range(microbatches):
+        loss_i, g_i = _value_and_grad(cfg, params,
+                                      {k: v[i] for k, v in chunks.items()})
+        with torch.no_grad():
+            loss = loss + loss_i
+            grads = [a + g for a, g in zip(grads, g_i)]
+        del g_i
+    inv = 1.0 / microbatches
+    with torch.no_grad():
+        return loss * inv, [g * inv for g in grads]
+
+
 def apply_step(cfg: ModelConfig, opt: AdamConfig, state: dict,
-               batch: dict) -> tuple:
-    """The step's device work: the loss, its gradients and the AdamW
-    update -> (new params, new opt_state, metrics). Out of place.
+               batch: dict, microbatches: int = 1) -> tuple:
+    """The step's device work: the loss, its gradients (over
+    `microbatches` chunks of the batch, `_accumulated_grads`) and the
+    AdamW update -> (new params, new opt_state, metrics). Out of place.
     `make_train_step` adds the step counter and the rng fold; the
     dry-run traces this on DTensor state."""
     params = state["params"]
-    leaves = [p.detach().requires_grad_(True) for p in leaf_arrays(params)]
-    live = tree_unflatten(params, leaves)
-    loss, _ = M.forward(cfg, live, batch)
-    grads = torch.autograd.grad(loss, leaves)
-    grads = tree_unflatten(params, list(grads))
+    if microbatches == 1:
+        loss, grads = _value_and_grad(cfg, params, batch)
+    else:
+        loss, grads = _accumulated_grads(cfg, params, batch, microbatches)
+    grads = tree_unflatten(params, grads)
     with torch.no_grad():
         new_params, new_opt, gnorm = adam_update(
             opt, grads, state["opt_state"], params)
-    return new_params, new_opt, {"loss": loss.detach(), "grad_norm": gnorm}
+    return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamConfig | None = None):
+def make_train_step(cfg: ModelConfig, opt: AdamConfig | None = None,
+                    microbatches: int = 1):
     """-> train_step(state, batch) -> (new state, metrics).  Out of
-    place; the loss and grad norm are device scalars."""
+    place; the loss and grad norm are device scalars. `microbatches` > 1
+    accumulates the gradients of equal chunks of the batch (the
+    reference's knob for a step whose activations exceed the card's
+    memory) and makes one update with their mean."""
     opt = opt if opt is not None else AdamConfig()
 
     def train_step(state: dict, batch: dict) -> tuple:
-        new_params, new_opt, metrics = apply_step(cfg, opt, state, batch)
+        new_params, new_opt, metrics = apply_step(cfg, opt, state, batch,
+                                                  microbatches)
         with torch.no_grad():
             step = state["step"]
             rng = fold_in(state["rng"].cpu().numpy(), int(step))
@@ -129,3 +190,22 @@ def with_step_boundary(step_fn: Callable,
 def state_to(state: Any, device) -> Any:
     """The same tree with every leaf on `device`."""
     return tree_map(lambda t: t.to(device), state)
+
+
+def make_eval_step(cfg: ModelConfig):
+    def eval_step(params, batch):
+        with torch.no_grad():
+            return M.forward(cfg, params, batch, remat=False)[0]
+    return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, batch):
+        return M.logits_fn(cfg, params, batch)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    def serve_step(params, cache, tokens):
+        return M.decode_step(cfg, params, cache, tokens)
+    return serve_step

@@ -224,6 +224,33 @@ def test_flop_formulas_are_the_bounds_counts():
                         True) == (721_579_671_552, 1_803_949_178_880)
     assert ss.ssd_flops(2, 2048, 24, 64, 128, 256) == \
         (4_972_871_680, 11_691_098_112)
+    # the padded widths count their real hd: hubert-xlarge's call (hd 80,
+    # non-causal) 171.8 / 429.5 GFLOP, phi-3-vision's prefill row (hd 96)
+    assert sw.swa_flops((2, 4096, 16, 1, 80), (2, 4096, 16, 80), None,
+                        False) == (171_798_691_840, 429_496_729_600)
+    assert sw.swa_flops((1, 32768, 32, 1, 96), (1, 32768, 32, 96), None,
+                        True)[0] == 4 * 96 * 32 * (32768 * 32769 // 2)
+
+
+@pytest.mark.parametrize("hd", [80, 96, 112])
+def test_custom_ops_count_and_shape_the_real_head_width(hd):
+    """At a padded width (the kernels run hd 128 on zero-filled columns)
+    the fake impls keep the real hd and the formulas count it."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    sw = importlib.import_module("repro_torch.kernels.swa_attention")
+    B, S, KV, G = 1, 300, 2, 8
+    q = torch.empty(B, S, KV, G, hd, device="meta")
+    k = torch.empty(B, S, KV, hd, device="meta")
+    pairs = _brute_pairs(S, 70, True)
+    with FlopCounterMode(display=False) as fc:
+        o, lse = sw.swa_flash_fwd_op(q, k, k, 70, True)
+    assert o.shape == q.shape and lse.shape == (B, KV, G, S)
+    assert fc.get_total_flops() == 4 * hd * pairs * B * KV * G
+    with FlopCounterMode(display=False) as fc:
+        dq, dk, dv = sw.swa_flash_bwd_op(o, q, k, k, o, lse, 70, True)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert fc.get_total_flops() == 10 * hd * pairs * B * KV * G
 
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
@@ -248,7 +275,8 @@ def test_ssd_flop_formula_reaches_the_counter(B, S, H, P, N, chunk):
 def test_cli_records_not_ported_and_skipped_pairs(tmp_path, capsys):
     """A family the port lacks is `[not ported]` with check_supported's
     message (not folded into `[skip]`); a ported pair the reference skips
-    too is `[skip]`; neither is a failure."""
+    too is `[skip]` (hubert, an encoder, has no decode step); neither is
+    a failure."""
     out = tmp_path / "rec.jsonl"
     for arch, shape in (("dbrx-132b", "train_4k"),
                         ("hubert-xlarge", "decode_32k"),
@@ -259,8 +287,56 @@ def test_cli_records_not_ported_and_skipped_pairs(tmp_path, capsys):
     recs = [json.loads(l) for l in out.read_text().splitlines()]
     assert "[not ported] dbrx-132b x train_4k: dbrx-132b: ported are" in text
     assert "MoE waits for ROADMAP" in recs[0]["not_ported"]
-    assert "audio inputs" in recs[1]["not_ported"]
+    assert recs[1] == {"arch": "hubert-xlarge", "shape": "decode_32k",
+                       "skipped": "encoder-only architecture has no "
+                                  "decode step"}
     assert "[skip] qwen3-8b x long_500k" in text
     assert recs[2] == {"arch": "qwen3-8b", "shape": "long_500k",
                        "skipped": "full-attention arch without "
                                   "sub-quadratic variant"}
+
+
+def test_all_pairs_triage_as_the_cli_counts_them():
+    """`--all`'s 40 pairs, sorted as `main` sorts them (`triage`, no
+    tracing): 23 records, 5 `[skip]` (hubert's two decode shapes, and
+    long_500k of the three full-attention archs), 12 `[not ported]` (the
+    MoE archs dbrx and kimi-k2, the hybrid jamba)."""
+    from repro_torch.configs import ASSIGNED_ARCHS
+    kinds = {"record": [], "skip": [], "not ported": []}
+    for a in ASSIGNED_ARCHS:
+        for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            try:
+                DR.triage(get_config(a), INPUT_SHAPES[s])
+                kinds["record"].append((a, s))
+            except DR.SkipPair:
+                kinds["skip"].append((a, s))
+            except DR.NotPorted:
+                kinds["not ported"].append((a, s))
+    assert {k: len(v) for k, v in kinds.items()} == \
+        {"record": 23, "skip": 5, "not ported": 12}
+    assert {a for a, _ in kinds["not ported"]} == \
+        {"dbrx-132b", "kimi-k2-1t-a32b", "jamba-v0.1-52b"}
+    assert sorted(kinds["skip"]) == sorted(
+        [("hubert-xlarge", "decode_32k"), ("hubert-xlarge", "long_500k"),
+         ("qwen3-8b", "long_500k"), ("deepseek-67b", "long_500k"),
+         ("phi-3-vision-4.2b", "long_500k")])
+    for a in ("hubert-xlarge", "phi-3-vision-4.2b"):
+        assert (a, "train_4k") in kinds["record"]
+        assert (a, "prefill_32k") in kinds["record"]
+
+
+def test_a_view_adds_nothing_to_the_peak():
+    """The peak counts an op's fresh outputs beside what is live; a view
+    (an output on a storage already live) allocates nothing. A step
+    whose last op views its whole cache stack once counted the stack
+    twice."""
+    import torch
+    acct = DR._Accounting()
+    with acct:
+        x = torch.ones(256, 256)
+        whole = x.view(-1)
+        half = x[:128]
+        assert acct.peak == x.numel() * 4
+        y = x + 1
+    assert acct.peak == 2 * x.numel() * 4
+    del whole, half, y

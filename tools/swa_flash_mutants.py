@@ -11,7 +11,10 @@ max |diff| <= 3e-2 max |ref|; at starcoder2-3b's shape, against the plain
 version) and the row check (`chip_smoke._rows_held` against
 `chip_smoke._swa_fp64_given_o`, every case). It exits 0 when the real
 library passes both checks everywhere and the row check catches every
-mutant.
+mutant. The last three are faults of the padded route (hd 80, 96, 112 on
+the hd-128 kernels), caught at SWA_EDGE_CASES' padded rows; the last,
+whose stores run past the output, comes last because a fault it raises
+on the card ends every later launch in the process.
 
     python3 tools/swa_flash_mutants.py      (an H100 and nvcc)
 """
@@ -47,6 +50,16 @@ MUTANTS = [
      "pack_bf16(dV[4 * i + 2 * half], dV[4 * i + 2 * half + 1])",
      "pack_bf16(kpos < 1024 ? dV[4 * i + 2 * half] : 0.f,"
      " kpos < 1024 ? dV[4 * i + 2 * half + 1] : 0.f)"),
+    ("padded widths: the forward's scale from the padded width, not hd",
+     "(bf16*)o, lse, Sq, Sk, KV, G, window, causal, scale);",
+     "(bf16*)o, lse, Sq, Sk, KV, G, window, causal,"
+     " HS == HD ? scale : 1.f / sqrtf((float)HD));"),
+    ("padded widths: out-of-bounds boxes filled with NaN, not zero",
+     "CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE",
+     "CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA"),
+    ("padded widths: dQ stored with the padded row stride",
+     "dq + (((long long)b * Sq + qpos) * H + h) * HS",
+     "dq + (((long long)b * Sq + qpos) * H + h) * HD"),
 ]
 
 
@@ -111,8 +124,13 @@ def main() -> int:
             caught_earlier = caught_rows = False
             print(f"{name}:")
             for c, x, plain in inputs:
-                earlier, rows, worst = verdicts(torch, K, x, plain, c[6],
-                                                c[7])
+                try:
+                    earlier, rows, worst = verdicts(torch, K, x, plain,
+                                                    c[6], c[7])
+                except RuntimeError as e:      # a fault on the card
+                    print(f"    {c[0]}: raised: {e}"[:200])
+                    caught_rows = True
+                    break
                 print(f"    {c[0]}: "
                       + ("" if earlier is None else
                          f"earlier tolerances {'hold' if earlier else 'fail'}"
