@@ -38,7 +38,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      zero-filled columns) and at gemma3-4b's head shape (local and global
      window), the forward alone in bf16 at the serving path's prefill
      calls (S 32768: gemma3-4b's local and global layers at its 8 rows,
-     starcoder2-3b's at its 12, phi-3-vision-4.2b's, hd 96, at its 4),
+     starcoder2-3b's at its 12, phi-3-vision-4.2b's, hd 96, at its 4,
+     dbrx-132b's, 8 KV heads of 6 query heads each, at its 1),
      the whole batch launched and each row held against the
      plain version on that row, timed at the batch and at one row, with
      SDPA's memory-efficient attention timed beside them as a yardstick,
@@ -68,7 +69,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      hubert-xlarge at full depth (48 layers, seq 4096, batch 2, frame
      embeddings, non-causal swa_flash at hd 80 in every layer); the
      launch counts are set to 0 just before each run and read just after
-     it;
+     it, and the device memory allocated once the run returned (before
+     any collection) is held within 1 GB of what it was before the run;
   5. the durable tiers at full width, one path (counts set to 0 before
      it, read after it), opt-125m (seq 256, an SG of 4, 12 steps, every
      restore checked byte for byte):
@@ -106,14 +108,21 @@ Phases, each printed as it ends; any failure exits non-zero:
      dense per-bucket digest compare encodes every kind-2 bucket with
      its CRC, counted on their own), then a delta chain over opt-125m's
      state on the card through a dirty provider, its `.reft` / `.reftd`
-     family restored byte-exact (one path); then `MultiStageGroup(2, 2)`
+     family restored byte-exact (one path); then the MoE delta run:
+     `--delta` on reduced dbrx-132b at seq 2048 (the fp32 swa_flash
+     kernels in every layer, the two failures, each restore byte-exact),
+     each call of the touched-expert provider printed, every byte ruled
+     dirty and no bucket clean (one path); then `MultiStageGroup(2, 2)`
      over the state after a train step, one node lost in each stage,
      both stages recovered byte-exact, each stage's tier printed (one
      path);
-  8. serving at full width and full depth, one path (counts set to 0
-     before it, read after it): gemma3-4b (34 layers), starcoder2-3b (30),
-     mamba2-130m (24) and phi-3-vision-4.2b (32; its prompts 576 patch
-     embeddings, then tokens), weights from a seed on the card, each through
+  8. serving at full width, one path (counts set to 0 before it, read
+     after it): gemma3-4b (34 layers), starcoder2-3b (30), mamba2-130m
+     (24) and phi-3-vision-4.2b (32; its prompts 576 patch embeddings,
+     then tokens) at full depth, dbrx-132b with its depth cut to 8 of 40
+     layers (its decode check on a 2-layer model of its widths at a
+     drop-free capacity, the share of routes its prefill and decode pick
+     alike printed), weights from a seed on the card, each through
      `models.model`'s `logits_fn` (prefill_32k's 32768 positions, timed; its
      caches shaped as `init_cache`'s), a decode check (24 teacher-forced
      tokens through `decode_step` from an empty cache of the decode
@@ -122,7 +131,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      first rows that fit) at DECODE_FP32_TOL, then in bf16 at a bound
      scaled by the bf16 prefill's distance from the fp32 one), then decode
      steps timed at the full cache (gemma3-4b decode_32k, starcoder2-3b
-     long_500k, mamba2-130m decode_32k) beside their bound (weights and
+     long_500k, mamba2-130m, phi-3-vision-4.2b and dbrx-132b decode_32k)
+     beside their bound (weights and
      cache read once at the HBM rate), peak device memory; the prefills
      launch swa_flash and ssd_scan in every layer; then `python -m
      repro_torch.examples.serve --device cuda` and `python -m
@@ -130,8 +140,9 @@ Phases, each printed as it ends; any failure exits non-zero:
   9. distribution and the dry-run: (a) `repro_torch.launch.dryrun` on
      the production 16x16 mesh for DRY_PAIRS (one chip's sharded fake
      program: FLOPs, bytes, collectives, argument and peak bytes, all
-     predictions), in a process of its own; (b) phase 8's four prefill
-     calls dry-run on a (1, 1) mesh, each predicted peak held within
+     predictions), in a process of its own; (b) phase 8's five prefill
+     calls dry-run on a (1, 1) mesh (dbrx-132b at its cut depth), each
+     predicted peak held within
      PEAK_RATIO of the prefill's measured peak
      (torch.cuda.max_memory_allocated, reset just before it, less the
      bytes live before it other than its arguments), the roofline time
@@ -139,7 +150,9 @@ Phases, each printed as it ends; any failure exits non-zero:
      group, a (1, 1) DeviceMesh: DTENSOR_RUNS' forward and backward
      with the params as DTensors, the loss and every gradient bit-equal
      to the plain tensors' (counts set to 0 before each run: starcoder2's
-     swa_flash launches through its custom op's sharding rule); (d)
+     and dbrx-132b's swa_flash launches through its custom op's sharding
+     rule; dbrx-132b at full width, one layer, S 4096: the MoE forward
+     and backward, the GSPMD route on one rank); (d)
      reshard-on-restore: full-width opt-125m's state snapshotted by an SG
      of 4, restored for each coordinate of a (data 2, model 2) mesh
      through `RestoreTarget(shardings=state_specs(...), mesh, coord)`,
@@ -219,6 +232,12 @@ DRILL_ARGS = ["--arch", "opt-125m", "--seq", "256", "--batch", "2",
 DELTA = "delta run"
 DELTA_ARGS = ["--arch", "opt-125m", "--seq", "256", "--batch", "2",
               "--delta", *RUN_ARGS]
+# the MoE delta run (phase 7): reduced dbrx-132b (every layer MoE, fp32,
+# hd 64: the fp32 swa_flash kernels at S 2048) under `--delta`, the
+# router's touched-expert mask feeding the dirty provider
+MOE_DELTA = "moe delta run"
+MOE_DELTA_ARGS = ["--arch", "dbrx-132b", "--reduced", "--seq", "2048",
+                  "--batch", "2", "--delta", *RUN_ARGS]
 DELTA_STEPS = 4                    # the chain: a keyframe, then 3 deltas
 DELTA_TOUCHED = 4                  # leaves the chain's update touches
 STAGES = "stage run"
@@ -226,9 +245,11 @@ N_PP, DP = 2, 2                    # MultiStageGroup(n_pp, dp)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense tensor cores
-# phase 8: serving (prefill, then decode) at full width and full depth:
+# phase 8: serving (prefill, then decode) at full width:
 # (arch, prefill rows at prefill_32k, decode shape, decode batch, rows of
-# the fp32 decode check). The batches are cut from the shapes' (32
+# the fp32 decode check, layers (None: full depth), layers of the decode
+# check's own model (None: the served model itself)). The batches are
+# cut from the shapes' (32
 # prefill rows; decode_32k 128) only as far as the card's memory forces:
 # the caches, their byte counts in PERF.md §4, beside the weights. The
 # fp32 check's rows: its caches at the decode shape's length take twice
@@ -237,11 +258,24 @@ BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense tensor cores
 # GB beside 15.3 GB). phi-3-vision's MHA caches take 12.9 GB a row at
 # S 32768: 4 prefill rows and 5 decode rows fit beside its 7.6 GB of
 # weights. Its prompts are its 576 patch embeddings, then tokens.
+# dbrx-132b is served at full width with its depth cut to 8 of 40 layers
+# (6.52 GB of weights a layer, the fp32 router included, and 2.47 GB of
+# embedding and head: 54.6 GB; the dry-run's (1, 1) trace predicts the
+# prefill of one 32768-token row at 70.2 GB): 1 prefill row (~15 GB of a
+# layer's MoE transients at T 32768), 18 decode_32k rows (1.07 GB of
+# cache a row, and ~0.28 GB of a layer's fp32 K and V at each step: 16
+# rows peaked at 76.2 GB of 85.0 on an NVIDIA H100 80GB HBM3 at 700 W);
+# its decode check runs on a 2-layer model of its widths
+# (8 layers of fp32 weights would be 104 GB), at a capacity factor of
+# its expert count (drop-free: capacity is per call, so at the published
+# 1.25 a 24-token prefill may drop a token the B-token decode keeps);
+# the timed prefill and decode run at the published 1.25.
 SERVING = "serving"
-SERVE_RUNS = [("gemma3-4b", 8, "decode_32k", 12, 2),
-              ("starcoder2-3b", 12, "long_500k", 1, 1),
-              ("mamba2-130m", 32, "decode_32k", 128, 128),
-              ("phi-3-vision-4.2b", 4, "decode_32k", 5, 1)]
+SERVE_RUNS = [("gemma3-4b", 8, "decode_32k", 12, 2, None, None),
+              ("starcoder2-3b", 12, "long_500k", 1, 1, None, None),
+              ("mamba2-130m", 32, "decode_32k", 128, 128, None, None),
+              ("phi-3-vision-4.2b", 4, "decode_32k", 5, 1, None, None),
+              ("dbrx-132b", 1, "decode_32k", 18, 1, 8, 2)]
 SERVE_T = 24                       # teacher-forced tokens held vs logits_fn
 SERVE_TIMED = 16                   # decode steps timed at the full Smax
 # decode's bf16 bound: for the logits (each request's row) and each cache
@@ -257,8 +291,9 @@ DECODE_BF16_K = 2.0
 # Mamba2 departs by 3.1e-5, 9.1e-5 with the SSD inputs rounded as the
 # kernel's bf16x3 products round them; the bounds are about ten times
 # that (tests/test_torch_decode.py::test_fp32_decode_is_within_the_chip_bound);
-# a VLM decodes tokens through the dense family's attention
-DECODE_FP32_TOL = {"dense": 1e-4, "vlm": 1e-4, "ssm": 1e-3}
+# a VLM decodes tokens through the dense family's attention, a MoE through
+# it and its experts, drop-free (tests/test_torch_decode.py: 0 on the CPU)
+DECODE_FP32_TOL = {"dense": 1e-4, "vlm": 1e-4, "moe": 1e-4, "ssm": 1e-3}
 # phase 9: distribution and the dry-run. (a) the dry-run on the production
 # 16x16 mesh for these pairs (one chip's sharded fake program, no device);
 # (b) phase 8's prefill calls dry-run on a (1, 1) mesh, the predicted peak
@@ -272,12 +307,16 @@ DRY_PAIRS = [("starcoder2-3b", "train_4k"), ("starcoder2-3b", "prefill_32k"),
              ("starcoder2-3b", "decode_32k"), ("starcoder2-3b", "long_500k"),
              ("gemma3-4b", "decode_32k"), ("mamba2-130m", "train_4k"),
              ("hubert-xlarge", "train_4k"),
-             ("phi-3-vision-4.2b", "prefill_32k")]
+             ("phi-3-vision-4.2b", "prefill_32k"), ("dbrx-132b", "train_4k")]
 PEAK_RATIO = (0.85, 1.15)
-DTENSOR_RUNS = [("opt-125m", 256, 2, None), ("starcoder2-3b", 16384, 1, 4)]
+# (arch, seq, batch, layers): dbrx-132b at full width, one layer, train_4k's
+# length (its MoE forward and backward; one rank: the GSPMD route)
+DTENSOR_RUNS = [("opt-125m", 256, 2, None), ("starcoder2-3b", 16384, 1, 4),
+                ("dbrx-132b", 4096, 1, 1)]
 RESHARD_ARCH, RESHARD_MESH = "opt-125m", (2, 2)
 DRY_RUN = (
-    "import json, sys\n"
+    "import dataclasses, json, sys\n"
+    "from repro_torch.configs import get_config\n"
     "from repro_torch.configs.base import INPUT_SHAPES, InputShape\n"
     "from repro_torch.launch import dryrun as DR\n"
     "from repro_torch.launch.mesh import make_mesh\n"
@@ -285,11 +324,13 @@ DRY_RUN = (
     "out = {'production': [DR.run_pair(a, s, multi_pod=False)\n"
     "                      for a, s in pairs], 'prefill': []}\n"
     "mesh = make_mesh((1, 1), ('data', 'model'))\n"
-    "for arch, rows, seq in prefills:\n"
+    "for arch, rows, seq, layers in prefills:\n"
     "    name = f'serve_{rows}x{seq}'\n"
     "    INPUT_SHAPES[name] = InputShape(name, seq, rows, 'prefill')\n"
+    "    cfg = None if layers is None else dataclasses.replace(\n"
+    "        get_config(arch), num_layers=layers)\n"
     "    out['prefill'].append(DR.run_pair(arch, name, multi_pod=False,\n"
-    "                                      mesh=mesh))\n"
+    "                                      mesh=mesh, cfg=cfg))\n"
     "print('DRYRUN_JSON ' + json.dumps(out))\n")
 # the swa_flash shapes: (label, B, S, KV, G, hd, window, causal, on path:
 # True for a training path's shape, fwd and bwd (the first row's times
@@ -309,6 +350,8 @@ SWA_CASES = [("starcoder2-3b", 1, 16384, 2, 12, 128, 4096, True, True),
              ("starcoder2-3b prefill", 1, 32768, 2, 12, 128, 4096, True,
               SERVING),
              ("phi-3-vision-4.2b prefill", 1, 32768, 32, 1, 96, None, True,
+              SERVING),
+             ("dbrx-132b prefill", 1, 32768, 8, 6, 128, None, True,
               SERVING)]
 # small shapes at the edges of the wrappers' contract: (label, B, S, KV, G,
 # hd, window, causal)
@@ -1479,10 +1522,10 @@ def main_path(torch, arch, seq, batch, layers, must_launch):
     from repro_torch.launch import train
     ckpt = tempfile.mkdtemp(prefix="reft-chip-smoke-")
     cut = [] if layers is None else ["--layers", str(layers)]
-    # the previous run's last state lives on in reference cycles (its
-    # session and engines) until a collection: free it first
+    # free whatever an earlier phase left for the collector
     gc.collect()
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -1493,6 +1536,15 @@ def main_path(torch, arch, seq, batch, layers, must_launch):
         launches = launch_counts()
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+    # the run's last state must be gone as it returns, no collection
+    # needed (a finished flight drops the leaves it pinned)
+    after = torch.cuda.memory_allocated()
+    print(f"{arch} path: device memory allocated {base} B before the run, "
+          f"{after} B once it returned (before any collection): "
+          f"{(after - base) / 1e9:+.3f} GB")
+    if after - base > 1e9:
+        raise AssertionError(f"{arch}: {after - base} B more allocated "
+                             f"after the run than before it")
     want = _want_tiers(rep, arch)
     if _tiers(rep) != want:
         raise AssertionError(f"{arch}: recoveries {rep['recoveries']}: want "
@@ -1629,6 +1681,22 @@ def _want_tiers(rep, what):
     return [(first, True), ("raim5", True)]
 
 
+def _persists_held(rep, fams, what):
+    """A durable run's rounds against its store: some round persisted,
+    the session's closing persist counted (the node failure fails the
+    rounds in the air, and a cadence round after it finds no step clean
+    on the respawned member until its first flight lands, which may be
+    after the last step), some bytes were uploaded, and every family with
+    a manifest in the store is a step the run's events report persisted."""
+    persisted = rep["persisted_steps"]
+    up = rep["stats"].get("persist_upload_bytes")
+    stray = sorted(set(fams) - set(persisted))
+    if not persisted or not up or not fams or stray:
+        raise AssertionError(f"{what}: persisted steps {persisted}, uploads "
+                             f"{up} B, families with a manifest "
+                             f"{sorted(fams)} (not persisted: {stray})")
+
+
 def _objstore_run(ckpt):
     """The objstore run: a persist every 4 steps, the two failures."""
     from repro_torch.store import LocalObjectStore, object_families
@@ -1642,14 +1710,13 @@ def _objstore_run(ckpt):
     st = rep["stats"]
     fams = object_families(LocalObjectStore(os.path.join(ckpt, "objstore")),
                            "families")
-    if not st.get("persist") or not st.get("persist_upload_bytes") \
-            or not fams:
-        raise AssertionError(f"objstore run: persists {st.get('persist')}, "
-                             f"uploads {st.get('persist_upload_bytes')} B, "
-                             f"families with a manifest {sorted(fams)}")
+    _persists_held(rep, fams, "objstore run")
     steps = rep["step_seconds"]
     print(f"objstore run: {len(steps)} steps, median step "
-          f"{statistics.median(steps):.4f} s, persists {st['persist']} "
+          f"{statistics.median(steps):.4f} s, persists "
+          f"{st.get('persist', 0)} in the steps, "
+          f"{len(rep['persisted_steps'])} with the closing one (steps "
+          f"{rep['persisted_steps']}) "
           f"(persist_s {st.get('persist_seconds', 0.0):.3f}), "
           f"persist_overlap_s {st.get('persist_overlap_seconds', 0.0):.3f}, "
           f"uploads {st['persist_upload_bytes'] / 1e6:.1f} MB in "
@@ -2100,8 +2167,56 @@ def delta_path(torch):
     return launches, fold_crc
 
 
+def moe_delta_path(torch):
+    """Phase 7b, one path (counts set to 0 before it, read after it): the
+    CLI with `--delta` on reduced dbrx-132b (MOE_DELTA_ARGS: every layer
+    MoE, seq 2048, the fp32 swa_flash kernels; RUN_ARGS' two failures,
+    each restore byte-exact), the router's touched-expert mask consumed
+    by the dirty provider at each flight: each call's touched experts
+    printed, every byte ruled dirty (the expert leaves are stacked over
+    the layers) and so no bucket ruled clean."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="reft-chip-moe-delta-")
+    try:
+        rep = _train([*MOE_DELTA_ARGS, "--ckpt-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = launch_counts()
+    want = _want_tiers(rep, MOE_DELTA)
+    if _tiers(rep) != want:
+        raise AssertionError(f"{MOE_DELTA}: recoveries {rep['recoveries']}:"
+                             f" want {want}, all byte-exact")
+    for name in ("encode_bucket", "swa_flash", "swa_flash_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"{MOE_DELTA} path")
+    calls = rep["expert_flights"]
+    clean = [e.get("provider_clean_buckets", 0) for e in rep["engine_stats"]]
+    st = rep["stats"]
+    print(f"{MOE_DELTA}: {len(rep['step_seconds'])} steps, median step "
+          f"{statistics.median(rep['step_seconds']):.4f} s, wall "
+          f"{time.perf_counter() - t0:.3f} s; delta_flights "
+          f"{st.get('delta_flights')} keyframes {st.get('keyframe_flights')}"
+          f" skipped_buckets {st.get('skipped_buckets')}; the provider's "
+          f"{len(calls)} calls (one a member flight), experts touched since "
+          f"the last call: {[c['touched'] for c in calls]}; dirty bytes "
+          f"{sorted({c['dirty_bytes'] for c in calls})} of "
+          f"{calls[0]['total_bytes'] if calls else 0}; buckets the provider "
+          f"ruled clean, by member: {clean}; launches "
+          f"{json.dumps(launches)}; recoveries "
+          f"{json.dumps(rep['recoveries'])}")
+    if not calls or not any(c["touched"] for c in calls) \
+            or any(c["dirty_bytes"] != c["total_bytes"] for c in calls) \
+            or any(clean):
+        raise AssertionError(f"{MOE_DELTA}: the provider's calls {calls}, "
+                             f"clean buckets {clean}")
+    return launches
+
+
 def stage_path(torch):
-    """Phase 7b, one path: `MultiStageGroup(N_PP, DP)` over opt-125m's full
+    """Phase 7c, one path: `MultiStageGroup(N_PP, DP)` over opt-125m's full
     state after one train step, on the card; one node lost in each stage
     at the same step, both stages recovered (each stage's tier printed)
     and the joined state held byte for byte."""
@@ -2209,41 +2324,172 @@ def _decode_leaves(lg, ent):
                False) for n in ent))
 
 
-def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
-    """One model at full width and full depth, weights from a seed on the
-    card: prefill (`logits_fn` over prefill_b prompts of prefill_32k's
-    32768 tokens, timed, its caches shaped as `init_cache`'s first 32768
-    slots), the decode check (SERVE_T teacher-forced tokens through
-    `decode_step` from an empty `init_cache(B, Smax)`, the last logits
-    and the caches decode wrote held against `logits_fn` over the same
-    tokens: in fp32, the first fp32_b requests, at DECODE_FP32_TOL; in
-    bf16, all decode_b, at DECODE_BF16_K times the bf16 prefill's
-    distance from the fp32 prefill), then SERVE_TIMED greedy steps timed
-    at the full Smax, beside the step's bound: the weights it reads (the
-    embedding only in its looked-up rows when the head is untied), the
-    cache read once, what it writes (one k/v slot a layer, or the whole
-    SSM state), at the HBM rate. -> the run's numbers."""
+def _routes(fn):
+    """fn() with every MoE router call's (T, k) expert ids recorded. ->
+    (fn's result, [ids] in call order)."""
+    moe = importlib.import_module("repro_torch.models.moe")
+    seen, route = [], moe._route
+
+    def recorded(router, cfg, xf):
+        probs, w, sel = route(router, cfg, xf)
+        seen.append(sel)
+        return probs, w, sel
+
+    moe._route = recorded
+    try:
+        return fn(), seen
+    finally:
+        moe._route = route
+
+
+def _route_sets(torch, calls, B, L):
+    """(L, B, SERVE_T, k) sorted expert ids from a prefill's router calls
+    (a (B*T, k) call a layer) or SERVE_T decode steps' (a (B, k) call a
+    step and layer)."""
+    if len(calls) == L:
+        ids = torch.stack([c.view(B, SERVE_T, -1) for c in calls])
+    else:
+        ids = torch.stack([torch.stack(
+            [calls[t * L + i] for t in range(SERVE_T)], 1) for i in range(L)])
+    return ids.sort(-1).values
+
+
+def _routes_alike(torch, a, b):
+    """-> (the share of (layer, request, token) routes `a` and `b` pick
+    alike, (B,) whether each request's routes are all alike)."""
+    same = (a == b).all(-1)
+    return same.float().mean().item(), same.all(-1).all(0)
+
+
+def _decode_check(torch, arch, cfg, params, toks, fp32_b, Smax):
+    """SERVE_T teacher-forced tokens through `decode_step` from an empty
+    `init_cache(B, Smax)`, the last logits and the caches decode wrote
+    held against `logits_fn` over the same tokens: in fp32 (fp32 copies
+    of the weights), the first fp32_b requests, at DECODE_FP32_TOL; in
+    bf16, every request, at DECODE_BF16_K times the bf16 prefill's
+    distance from the fp32 prefill. On a MoE model the share of (token,
+    layer) routes the bf16 prefill and decode pick alike is printed.
+    -> (rows held, the bf16 cache and last logits, the share or None)."""
     import dataclasses
 
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.core.treebytes import leaf_arrays, tree_unflatten
+    from repro_torch.models import model as M
+    dev = toks.device
+    decode_b = toks.shape[0]
+    # decode takes tokens alone, so a VLM's prefill here has no patches
+    text = {"tokens": toks, **({"patches": torch.zeros(
+        decode_b, 0, cfg.d_model, device=dev)} if cfg.num_patches else {})}
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = tree_unflatten(params, [t.float() for t in leaf_arrays(params)])
+    (l32, c32), pre32 = _routes(lambda: M.logits_fn(cfg32, p32, text))
+    tol32 = DECODE_FP32_TOL[cfg.family]
+    cache = M.init_cache(cfg32, fp32_b, Smax, dev)
+    for t in range(SERVE_T):
+        lg, cache = M.decode_step(cfg32, p32, cache, toks[:fp32_b, t:t + 1])
+    ent = cache["entries"]["pos0"]
+    held = []
+    for name, got, rows in _decode_leaves(lg, ent):
+        want = (l32 if name == "logits" else c32["pos0"][name])[
+            (slice(fp32_b),) if name == "logits" else
+            (slice(None), slice(fp32_b))]
+        e = _rel(got, want, rows)
+        ok = math.isfinite(e) and e <= tol32
+        held.append({"leaf": name, "type": "float32", "rows": fp32_b,
+                     "decode_vs_prefill": e, "bound": tol32, "held": ok})
+        print(f"{arch} decode check fp32 {name} ({fp32_b} of {decode_b} "
+              f"rows): ||decode - prefill|| / ||prefill|| {e:.3e} (bound "
+              f"{tol32:g})")
+    if int(cache["index"]) != SERVE_T:
+        held.append({"leaf": "index", "held": False})
+    # `got` views the fp32 cache: drop it too, or its last leaf stays
+    del p32, cache, ent, lg, got, want
+    torch.cuda.empty_cache()
+    (l16, c16), pre = _routes(lambda: M.logits_fn(cfg, params, text))
+    cache = M.init_cache(cfg, decode_b, Smax, dev)
+    dec = []
+    for t in range(SERVE_T):
+        (lg, cache), seen = _routes(lambda: M.decode_step(
+            cfg, params, cache, toks[:, t:t + 1]))
+        dec += seen
+    agree, keep = None, slice(None)
+    if pre:
+        # a MoE: a route that flips between two roundings of the same
+        # bf16 values (experts k and k+1 nearly tied) moves that token's
+        # output by a whole expert's share. Held as the other leaves are,
+        # the routes' share alike against the bf16 prefill's own share
+        # alike with the fp32 one; the values on the requests whose
+        # routes all agree
+        L = cfg.num_layers
+        p16 = _route_sets(torch, pre, decode_b, L)
+        agree, keep = _routes_alike(torch, p16, _route_sets(
+            torch, dec, decode_b, L))
+        yard_agree, _ = _routes_alike(torch, p16, _route_sets(
+            torch, pre32, decode_b, L))
+        e, y = 1 - agree, 1 - yard_agree
+        held.append({"leaf": "routes", "type": "bfloat16", "rows": decode_b,
+                     "decode_vs_prefill": e, "bf16_vs_fp32": y,
+                     "held": e <= DECODE_BF16_K * y})
+        print(f"{arch} decode check bf16 routes: {agree:.6f} of the "
+              f"{decode_b * SERVE_T * L} (layer, request, token) routes alike"
+              f" in the prefill and the decode, {yard_agree:.6f} in the bf16 "
+              f"and the fp32 prefills: {e / y if y else float(e > 0):.3f} of "
+              f"the bf16 spread (bound {DECODE_BF16_K}); "
+              f"{int(keep.sum())} of {decode_b} requests alike throughout")
+    ent = cache["entries"]["pos0"]
+    for name, got, rows in _decode_leaves(lg, ent):
+        pre_t, yard = ((l16, l32) if name == "logits"
+                       else (c16["pos0"][name], c32["pos0"][name]))
+        at = (keep,) if name == "logits" else (slice(None), keep)
+        got, pre_t, yard = got[at], pre_t[at], yard[at]
+        e, y = _rel(got, pre_t, rows), _rel(pre_t, yard, rows)
+        ok = math.isfinite(e) and e <= DECODE_BF16_K * y
+        held.append({"leaf": name, "type": "bfloat16", "rows": decode_b,
+                     "decode_vs_prefill": e, "bf16_vs_fp32": y, "held": ok})
+        print(f"{arch} decode check bf16 {name}: ||decode - prefill|| / "
+              f"||prefill|| {e:.3e}, bf16 prefill vs fp32 {y:.3e}: "
+              + (f"{e / y:.3f}" if y else "-") + " of the bf16 spread "
+              f"(bound {DECODE_BF16_K})")
+    if not all(h["held"] for h in held) or int(cache["index"]) != SERVE_T:
+        raise AssertionError(f"{arch}: decode departs from logits_fn: "
+                             f"{held}, index {int(cache['index'])}")
+    return held, cache, lg, agree
+
+
+def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b,
+               layers=None, check_layers=None):
+    """One model at full width (and full depth unless `layers` cuts it),
+    weights from a seed on the card: prefill (`logits_fn` over prefill_b
+    prompts of prefill_32k's 32768 tokens, timed, its caches shaped as
+    `init_cache`'s first 32768 slots), the decode check (`_decode_check`
+    on the served weights, or, with `check_layers`, first, on a model of
+    that many layers of the same widths, drop-free), then SERVE_TIMED
+    greedy steps timed at the full Smax, beside the step's bound: the
+    weights it reads (the embedding only in its looked-up rows when the
+    head is untied), the cache read once, what it writes (one k/v slot a
+    layer, or the whole SSM state), at the HBM rate. -> the run's
+    numbers."""
+    import dataclasses
+
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.core.treebytes import leaf_arrays
     from repro_torch.models import model as M
     from repro_torch.models.attention import FLASH_THRESHOLD
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = _path_config(arch, layers)
     V = cfg.vocab_size
     nbytes = lambda t: t.numel() * t.element_size()      # noqa: E731
     gc.collect()                 # an earlier run's tensors held in cycles
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
-    weight_bytes = sum(nbytes(t) for t in leaf_arrays(params))
     gen = torch.Generator(dev).manual_seed(1)
 
     def tokens(b, s):
         return torch.randint(0, V, (b, s), generator=gen, device=dev,
                              dtype=torch.int32)
+
+    Smax = INPUT_SHAPES[decode_shape].seq_len
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    weight_bytes = sum(nbytes(t) for t in leaf_arrays(params))
 
     def prompts(b, s, patches=cfg.num_patches):
         """s positions a row: a VLM's `patches` patch embeddings (seeded
@@ -2285,60 +2531,22 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
     del logits, caches, prompt
     torch.cuda.empty_cache()
 
-    # 2. the decode check: fp32 (its first fp32_b rows), then bf16; decode
-    # takes tokens alone, so a VLM's prefill here has no patches
-    Smax = INPUT_SHAPES[decode_shape].seq_len
-    toks = tokens(decode_b, SERVE_T)
-    text = {"tokens": toks, **({"patches": torch.zeros(
-        decode_b, 0, cfg.d_model, device=dev)} if cfg.num_patches else {})}
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
-    p32 = tree_unflatten(params, [t.float() for t in leaf_arrays(params)])
-    l32, c32 = M.logits_fn(cfg32, p32, text)
-    tol32 = DECODE_FP32_TOL[cfg.family]
-    cache = M.init_cache(cfg32, fp32_b, Smax, dev)
-    for t in range(SERVE_T):
-        lg, cache = M.decode_step(cfg32, p32, cache, toks[:fp32_b, t:t + 1])
+    # 2. the decode check on the served weights (with `check_layers`, on a
+    # model of its own once the served one is gone: step 5)
+    agree = None
+    if check_layers:
+        cache = M.init_cache(cfg, decode_b, Smax, dev)
+        cache["index"] = torch.full((), SERVE_T, dtype=torch.int32,
+                                    device=dev)
+        tok = tokens(decode_b, 1)
+    else:
+        held, cache, lg, _ = _decode_check(
+            torch, arch, cfg, params, tokens(decode_b, SERVE_T), fp32_b,
+            Smax)
+        tok = lg.argmax(-1).to(torch.int32)
     ent = cache["entries"]["pos0"]
-    held = []
-    for name, got, rows in _decode_leaves(lg, ent):
-        want = (l32 if name == "logits" else c32["pos0"][name])[
-            (slice(fp32_b),) if name == "logits" else
-            (slice(None), slice(fp32_b))]
-        e = _rel(got, want, rows)
-        ok = math.isfinite(e) and e <= tol32
-        held.append({"leaf": name, "type": "float32", "rows": fp32_b,
-                     "decode_vs_prefill": e, "bound": tol32, "held": ok})
-        print(f"{arch} decode check fp32 {name} ({fp32_b} of {decode_b} "
-              f"rows): ||decode - prefill|| / ||prefill|| {e:.3e} (bound "
-              f"{tol32:g})")
-    if int(cache["index"]) != SERVE_T:
-        held.append({"leaf": "index", "held": False})
-    # `got` views the fp32 cache: drop it too, or its last leaf stays
-    del p32, cache, ent, lg, got, want
-    torch.cuda.empty_cache()
-    l16, c16 = M.logits_fn(cfg, params, text)
-    cache = M.init_cache(cfg, decode_b, Smax, dev)
-    for t in range(SERVE_T):
-        lg, cache = M.decode_step(cfg, params, cache, toks[:, t:t + 1])
-    ent = cache["entries"]["pos0"]
-    for name, got, rows in _decode_leaves(lg, ent):
-        pre, yard = ((l16, l32) if name == "logits"
-                     else (c16["pos0"][name], c32["pos0"][name]))
-        e, y = _rel(got, pre, rows), _rel(pre, yard, rows)
-        ok = math.isfinite(e) and e <= DECODE_BF16_K * y
-        held.append({"leaf": name, "type": "bfloat16", "rows": decode_b,
-                     "decode_vs_prefill": e, "bf16_vs_fp32": y, "held": ok})
-        print(f"{arch} decode check bf16 {name}: ||decode - prefill|| / "
-              f"||prefill|| {e:.3e}, bf16 prefill vs fp32 {y:.3e}: "
-              + (f"{e / y:.3f}" if y else "-") + " of the bf16 spread "
-              f"(bound {DECODE_BF16_K})")
-    if not all(h["held"] for h in held) or int(cache["index"]) != SERVE_T:
-        raise AssertionError(f"{arch}: decode departs from logits_fn: "
-                             f"{held}, index {int(cache['index'])}")
-    del l32, c32, l16, c16
 
     # 3. decode steps at the full Smax (each scores every slot)
-    tok = lg.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(SERVE_TIMED):
@@ -2368,6 +2576,7 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
         2 * cfg.num_layers * decode_b * cfg.num_kv_heads * cfg.head_dim * el)
     bound_ms = (read + written) / HBM_BYTES_PER_S * 1e3
     run = {"arch": arch, "layers": cfg.num_layers,
+           "check_layers": check_layers or cfg.num_layers,
            "weight_bytes": weight_bytes, "prefill_batch": prefill_b,
            "prefill_seq": S, "prefill_cache_bytes": prefill_cache,
            "prefill_s": prefill_s,
@@ -2382,7 +2591,7 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
            "decode_bound_bytes": read + written, "peak_bytes": peak,
            "decode_device_ms": dev_ms,
            "decode_top_kernels": [[k, t] for k, t in top],
-           "decode_check": held}
+           "decode_check": None, "decode_routes_alike": None}
     print(f"{arch} serving ({cfg.num_layers} layers, weights {weight_bytes}"
           f" B): prefill {prefill_b}x{S} {prefill_s:.3f} s, "
           f"{run['prefill_tokens_per_s']:.1f} tokens/s (caches "
@@ -2392,8 +2601,22 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b):
           f"{bound_ms:.3f} ms ({read + written} B at 3.35 TB/s), "
           f"{step_ms / bound_ms:.2f}x bound; peak device memory "
           f"{peak / 1e9:.3f} GB")
-    del params, cache, ent, lg, tok, toks, text
+    del params, cache, ent, lg, tok
     torch.cuda.empty_cache()
+
+    # 5. a cut model's decode check: its own model of check_layers layers
+    # of the same widths, drop-free
+    if check_layers:
+        ccfg = dataclasses.replace(cfg, num_layers=check_layers,
+                                   capacity_factor=float(cfg.num_experts))
+        cparams = M.init_params(ccfg, torch.Generator(dev).manual_seed(0),
+                                dev)
+        held, cache, lg, agree = _decode_check(
+            torch, arch, ccfg, cparams, tokens(decode_b, SERVE_T), fp32_b,
+            Smax)
+        del cparams, cache, lg
+        torch.cuda.empty_cache()
+    run.update(decode_check=held, decode_routes_alike=agree)
     return run
 
 
@@ -2418,7 +2641,6 @@ def serving_path(torch):
     layer's prefill launches swa_flash or ssd_scan, the decode none and no
     backward), then the serving example on the card and the strict
     analyzer over the port, as subprocesses. -> (launches, runs)."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     reset_launch_counts()
     runs = [_serve_run(torch, *r) for r in SERVE_RUNS]
@@ -2427,8 +2649,8 @@ def serving_path(torch):
     # threshold; ssd_scan: every length), and ssd_scan in the check's
     # fp32 and bf16 prefills of SERVE_T tokens
     want = dict.fromkeys(launches, 0)
-    for arch, *_ in SERVE_RUNS:
-        cfg = get_config(arch)
+    for arch, *_, layers, _ in SERVE_RUNS:
+        cfg = _path_config(arch, layers)
         if cfg.family == "ssm":
             want["ssd_scan"] += 4 * cfg.num_layers
         else:
@@ -2452,8 +2674,8 @@ def start_dry_runs():
     process group never meets phase 9(c)'s real one), started before
     phase 8: it traces on the CPU while the card serves, and phase 8's
     prefill calls it predicts are SERVE_RUNS' own. -> (process, start)."""
-    prefills = [[arch, rows, _prefill_seq()] for arch, rows, *_ in
-                SERVE_RUNS]
+    prefills = [[arch, rows, _prefill_seq(), layers]
+                for arch, rows, _, _, _, layers, _ in SERVE_RUNS]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
         os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")])))
     return subprocess.Popen(
@@ -2748,11 +2970,16 @@ def dist_path(torch, serving, dry_started):
                 {k: launches[k] + got[k] for k in got}
     finally:
         dist.destroy_process_group()
-    # starcoder2-3b's layers each launch the forward (twice under remat:
-    # the backward runs it again) and the backward once; opt-125m none
-    sc = _path_config("starcoder2-3b", DTENSOR_RUNS[1][3])
-    want = {"swa_flash": sc.num_layers * (2 if sc.remat else 1),
-            "swa_flash_bwd": sc.num_layers}
+    # at S >= the flash threshold (starcoder2-3b's, dbrx-132b's runs) each
+    # layer launches the forward (twice under remat: the backward runs it
+    # again) and the backward once; opt-125m none
+    from repro_torch.models.attention import FLASH_THRESHOLD
+    want = {"swa_flash": 0, "swa_flash_bwd": 0}
+    for arch, seq, _, layers in DTENSOR_RUNS:
+        cfg = _path_config(arch, layers)
+        if seq >= FLASH_THRESHOLD:
+            want["swa_flash"] += cfg.num_layers * (2 if cfg.remat else 1)
+            want["swa_flash_bwd"] += cfg.num_layers
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"{DIST}: launches {launches}, want {want}")
     reshard, reshard_full = _reshard_run(torch)
@@ -2792,6 +3019,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("7 delta flights and pipeline stages at full width")
     by_path[DELTA], delta_fold_crc = delta_path(torch)
+    torch.cuda.empty_cache()
+    by_path[MOE_DELTA] = moe_delta_path(torch)
     torch.cuda.empty_cache()
     by_path[STAGES] = stage_path(torch)
     torch.cuda.empty_cache()

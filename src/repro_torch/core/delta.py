@@ -78,14 +78,20 @@ def expert_dirty_ranges(spec, touched: Sequence[bool],
     """Touched-expert mask -> conservative global dirty byte ranges.
 
     Expert-stacked leaves (leading dim == len(touched), path naming an
-    expert weight) contribute only their touched experts' slices; every
-    other leaf (router, norms, embeddings, scalars — all updated every
-    step) is whole-leaf dirty."""
+    expert weight, not under `blocks`) contribute only their touched
+    experts' slices; every other leaf (router, norms, embeddings,
+    scalars — all updated every step) is whole-leaf dirty. A leaf under
+    `blocks` carries the layer stack first, (L, E, ...), so it is always
+    whole-leaf dirty, whatever its shape: the reference takes its leading
+    dim for the experts' when L == E, and rules an untouched expert's
+    slices of layer 0 clean while every layer's changed. (AdamW's decay
+    and momentum change every expert's bytes every step anyway.)"""
     E = len(touched)
     out: List[Range] = []
     for leaf in spec.leaves:
         stacked = (E > 1 and len(leaf.shape) >= 1 and leaf.shape[0] == E
                    and leaf.nbytes % E == 0
+                   and "['blocks']" not in leaf.path
                    and any(m in leaf.path for m in markers))
         if not stacked:
             out.append((leaf.offset, leaf.offset + leaf.nbytes))

@@ -723,6 +723,8 @@ class PipelineFlight:
         finally:
             self.pump_done.set()
             self._ready.put(_STOP)
+            if self.done.is_set():
+                self._release()
 
     def _work_items(self) -> List[Tuple[int, BucketTask]]:
         """(full-schedule idx, task) pairs the pump must actually read —
@@ -982,6 +984,15 @@ class PipelineFlight:
             self.done.set()
             self.prev = None               # release the predecessor (and
                                            # its pinned leaves) promptly
+            if self.pump_done.is_set():
+                self._release()
+
+    def _release(self) -> None:
+        """Drop the pinned state once both levels are through with it
+        (whichever finishes second calls this): the pipeline keeps its
+        newest flight, so a finished flight must not keep the trainer's
+        last state alive."""
+        self.leaves = self.encoder = None
 
     def _drain_ready(self) -> None:
         while True:

@@ -188,7 +188,10 @@ class SnapshotEngine:
                                         if self._pipeline else False),
                       "stager_affinity": None,
                       "skipped_buckets": 0, "delta_flights": 0,
-                      "keyframe_flights": 0, "delta_base_misses": 0}
+                      "keyframe_flights": 0, "delta_base_misses": 0,
+                      # of skipped_buckets, those the dirty provider
+                      # ruled clean (never read), counted at launch
+                      "provider_clean_buckets": 0}
 
     @property
     def _flight(self) -> Optional[PipelineFlight]:
@@ -248,6 +251,8 @@ class SnapshotEngine:
                 plan = self._tracker.plan(self.last_clean_step,
                                           self._pipeline.schedule, ranges,
                                           self.spec.total_bytes)
+                if plan is not None:
+                    self.stats["provider_clean_buckets"] += len(plan.skip)
             rec = FlightRecord(int(step))
             self._flights.append(self._pipeline.start(leaves, int(step),
                                                       extra_meta or {},

@@ -72,22 +72,24 @@ def _children(node: Any):
     return None
 
 
+def _walk(node, path: str, out: list) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for k, c in kids:
+        _walk(c, path + k, out)
+
+
 def tree_flatten_with_path(tree: Any) -> List[Tuple[str, Any]]:
     """[(keystr path, leaf)] in JAX's flatten order (None is an empty
-    subtree, as in JAX)."""
+    subtree, as in JAX). A module-level walk: a recursive closure over
+    the list would hold every leaf in a reference cycle until the next
+    collection."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for k, c in kids:
-            walk(c, path + k)
-
-    walk(tree, "")
+    _walk(tree, "", out)
     return out
 
 

@@ -234,6 +234,61 @@ def _all_reduce(t, op: str, groups) -> torch.Tensor:
     return t
 
 
+class _Psum(torch.autograd.Function):
+    """The sum of local tensors over `groups`, whose gradient is the
+    (replicated) cotangent itself: each rank's input is its share of a
+    sum every rank then holds."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        return _all_reduce(t, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum(t: torch.Tensor, groups) -> torch.Tensor:
+    """JAX's `psum` inside `shard_map`, over each (mesh, mesh dim) of
+    `groups`, with the transpose a replicated gradient needs (the
+    identity)."""
+    return _Psum.apply(t, tuple(groups)) if groups else t
+
+
+def _wait(t):
+    from torch.distributed import _functional_collectives as funcol
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+class _AllGather(torch.autograd.Function):
+    """Local shards gathered along `dim` over each (mesh, mesh dim) of
+    `groups`, innermost mesh dim first (DTensor's layout of a dim
+    sharded over several mesh dims); the gradient is reduce-scattered
+    back, outermost first."""
+
+    @staticmethod
+    def forward(ctx, t, dim, groups):
+        from torch.distributed import _functional_collectives as funcol
+        ctx.dim, ctx.groups = dim, groups
+        for g in reversed(groups):
+            t = _wait(funcol.all_gather_tensor(t.contiguous(), dim, g))
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+        for grp in ctx.groups:
+            g = _wait(funcol.reduce_scatter_tensor(g.contiguous(), "sum",
+                                                   ctx.dim, grp))
+        return g, None, None
+
+
+def all_gather(t: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """JAX's tiled `all_gather` over the mesh axes `groups` (FSDP's
+    gather of a weight's shards), whose transpose is a reduce-scatter."""
+    return _AllGather.apply(t, dim, tuple(groups)) if groups else t
+
+
 class _VocabNLL(torch.autograd.Function):
     """Per-position NLL in fp32 of local (..., v) logits holding columns
     [offset, offset + v) of a vocabulary split over `groups`: each rank
@@ -342,11 +397,16 @@ def lookup(table: Any, ids: Any) -> Any:
     no communication; the table's gradient is a partial sum over the
     ranks that gathered different rows. (DTensor's own rule for this
     index leaves the backward a scatter some torch versions cannot
-    place.)"""
+    place.) A table whose vocabulary dim is sharded (FSDP's rule) is
+    gathered whole along it first, as FSDP gathers a weight before it is
+    used; that redistribution's backward reduce-scatters the gradient."""
     if not isinstance(table, DTensor) or any(
-            p.is_partial() or p.is_shard(0) for p in table.placements):
+            p.is_partial() for p in table.placements):
         return table[ids]
     mesh = table.device_mesh
+    if any(p.is_shard(0) for p in table.placements):
+        table = table.redistribute(mesh, [Replicate() if p.is_shard(0)
+                                          else p for p in table.placements])
     if not isinstance(ids, DTensor):
         ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
                                  run_check=False)

@@ -18,9 +18,8 @@ Two opt-in rule tables compose on top:
     replicated trailing dim over the batch axes (ZeRO-3 style);
   * expert parallelism (`cfg.moe_ep`): stacked MoE expert leaves
     (`wi_gate`/`wi_up`/`wo` with a leading experts dim) shard experts
-    over "model" and, under FSDP, their fan-in dim over the batch axes.
-    The rule is kept as the reference has it; it takes effect once the
-    MoE family is ported.
+    over "model" and, under FSDP, their fan-in dim over the batch axes
+    (the layout `models.moe.moe_ffn_ep` computes on).
 
 `named` turns a spec tree into `NamedSharding` leaves adapted to a mesh;
 `distribute` places a tree of tensors as DTensors by them.

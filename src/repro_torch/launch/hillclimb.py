@@ -5,8 +5,9 @@ config variant and report its roofline terms (the port's counterpart of
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --exp starcoder2_band
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --list
 
-Experiments on a family the port lacks (MoE, hybrid, VLM, audio) print
-`[not ported]` and are skipped.
+Experiments on a family the port lacks (the hybrid family: jamba's)
+print `[not ported]` and are skipped; the MoE ones (kimi-k2, dbrx: the
+capacity padding, `moe_ep`) trace at full width.
 """
 import argparse
 import dataclasses

@@ -26,14 +26,16 @@ Runs on CUDA unless `--device cpu` asks for the CPU; with no CUDA device
 and no `--device cpu` it raises.  `--verify-restores` records the CRC32 of
 the whole state at every snapshotted step and checks each restored state
 against it, byte for byte.  `--layers N` cuts the depth to N layers and
-keeps every width.  `--delta` turns on dirty-delta snapshotting (on a
-dense arch, the per-bucket digest compare; reft and objstore only),
+keeps every width.  `--delta` turns on dirty-delta snapshotting (the
+per-bucket digest compare, and on a MoE arch the router's touched-expert
+mask as the dirty provider; reft and objstore only),
 `--auto-tune` the Appendix-A adaptive cadence, and `--no-reft` is
 `--backend null`.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -55,6 +57,35 @@ def _load_stats_str(ld) -> str:
     if ld.resharded:
         out += f" resharded={ld.saved_n}->{ld.target_n}"
     return out
+
+
+@contextlib.contextmanager
+def _touched_experts(num_experts: int):
+    """The router records the experts it picks (`moe.TOUCHED`) for the
+    block's steps."""
+    from repro_torch.models.moe import TOUCHED
+    TOUCHED.enable(num_experts)
+    try:
+        yield
+    finally:
+        TOUCHED.disable()
+
+
+def _expert_provider(fspec, log):
+    """The MoE dirty provider (`expert_dirty_ranges` over the router's
+    touched-expert mask, consumed at each flight), logging each call's
+    touched experts and dirty bytes into `log`."""
+    from repro_torch.core.delta import expert_dirty_ranges, ranges_bytes
+    from repro_torch.models.moe import TOUCHED
+
+    def provider():
+        touched = TOUCHED.consume()
+        ranges = expert_dirty_ranges(fspec, touched)
+        log.append({"touched": int(touched.sum()),
+                    "dirty_bytes": ranges_bytes(ranges),
+                    "total_bytes": fspec.total_bytes})
+        return ranges
+    return provider
 
 
 def resolve_device(name: str):
@@ -94,8 +125,9 @@ def parse_args(argv=None):
                          "behavior) instead of fire-and-poll")
     ap.add_argument("--delta", action="store_true",
                     help="dirty-delta snapshotting: the per-bucket digest "
-                         "compare skips buckets whose bytes did not change "
-                         "(the MoE touched-expert provider is not ported)")
+                         "compare skips buckets whose bytes did not change; "
+                         "on a MoE arch the router's touched-expert mask "
+                         "feeds the dirty provider")
     ap.add_argument("--device-encode", default="auto",
                     choices=["auto", "on", "off"],
                     help="bucket encode on the device (auto: when the "
@@ -123,9 +155,13 @@ def run(argv=None) -> dict:
     (under REFT, each member's clean steps as the ladder read them and
     its flights as its engine saw them then; see `RestoreResult`),
     snapshot CRCs (of every step some member launched), backend stats
-    (persists, overlap, uploads, scrub passes among them), the disk
-    backends' last save split into phases, and the launches of each CUDA
-    kernel during the run."""
+    (persists, overlap, uploads, scrub passes among them, read before
+    the session closes), the step of every persist that completed, the
+    session's closing persist included (`persisted_steps`), the disk
+    backends' last save split into phases, the launches of each CUDA
+    kernel during the run, and under `--delta` on a MoE arch each call of
+    the touched-expert provider (`expert_flights`: the experts touched
+    since the last call and the bytes it ruled dirty)."""
     ap, args = parse_args(argv)
     device = resolve_device(args.device)
 
@@ -184,7 +220,8 @@ def run(argv=None) -> dict:
 
     report = {"losses": [], "step_seconds": [], "step_beside_flight": [],
               "recoveries": [], "snapshot_crcs": {}, "stats": {},
-              "engine_stats": [], "disk_times": None}
+              "engine_stats": [], "disk_times": None,
+              "expert_flights": []}
     launches0 = launch_counts()
     saved_crc = report["snapshot_crcs"]
     t0 = time.time()
@@ -210,7 +247,14 @@ def run(argv=None) -> dict:
         ds.restore(res.extra_meta)
         return state_to(res.state, device), res.step
 
-    with CheckpointSession(spec, state) as sess:
+    moe_delta = args.delta and cfg.num_experts
+    with CheckpointSession(spec, state) as sess, \
+            (_touched_experts(cfg.num_experts) if moe_delta
+             else contextlib.nullcontext()):
+        if moe_delta and hasattr(sess.checkpointer, "set_dirty_provider"):
+            sess.checkpointer.set_dirty_provider(_expert_provider(
+                sess.checkpointer.group.engines[0].spec,
+                report["expert_flights"]))
         if sess.restored is not None:
             state, step = restored(sess.restored, "resume")
         while step < args.steps:
@@ -304,11 +348,24 @@ def run(argv=None) -> dict:
                   f"keyframes={st.get('keyframe_flights', 0)} "
                   f"skipped_buckets={st.get('skipped_buckets', 0)} "
                   f"base_misses={st.get('delta_base_misses', 0)}")
+        if report["expert_flights"]:
+            clean = sum(e.get("provider_clean_buckets", 0)
+                        for e in report["engine_stats"])
+            print(f"[{args.backend}] expert_provider calls="
+                  f"{len(report['expert_flights'])} touched="
+                  f"{[f['touched'] for f in report['expert_flights']]} "
+                  f"dirty_bytes="
+                  f"{sorted({f['dirty_bytes'] for f in report['expert_flights']})}"
+                  f" of {report['expert_flights'][0]['total_bytes']} "
+                  f"provider_clean_buckets={clean}")
         if st.get("scrub_passes"):
             print(f"[{args.backend}] scrub_passes={st['scrub_passes']} "
                   f"families={st.get('scrub_families', 0)} "
                   f"corrupt={st.get('scrub_corrupt', 0)} "
                   f"repaired={st.get('scrub_repaired', 0)}")
+    # the session's closing persist lands after `stats` was read
+    report["persisted_steps"] = [e.step for e in sess.events
+                                 if e.kind == "persist"]
     report["kernel_launches"] = {k: v - launches0[k]
                                  for k, v in launch_counts().items()}
     print("[kernels] " + " ".join(f"{k}={v}" for k, v in

@@ -1,6 +1,6 @@
-"""Model assembly: init / forward / prefill / decode for the dense and SSM
-families, with the VLM (patch embeddings before the tokens) and audio
-(frame embeddings, no tokens) inputs.
+"""Model assembly: init / forward / prefill / decode for the dense, MoE
+and SSM families, with the VLM (patch embeddings before the tokens) and
+audio (frame embeddings, no tokens) inputs.
 
 The counterpart of `repro/models/model.py`.  Parameters keep the
 reference's stacked layout — `params["blocks"]["pos0"][...]` leaves of
@@ -30,28 +30,29 @@ from repro_torch.models.layers import (
     FULL_WINDOW, chunked_cross_entropy, cross_entropy, dense_init, dtype_of,
     init_mlp, init_rms, mlp, pdtype_of, rms_norm,
 )
+from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.ssm import init_ssm, ssm_block, ssm_decode
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Ported: the dense family, with full or sliding-window attention
     (homogeneous as starcoder2, or local and global layers interleaved as
-    gemma3), the pure SSM family (Mamba2), and dense stacks fed by patch
-    embeddings (VLM: phi-3-vision) or frame embeddings (audio: hubert, an
-    encoder). Any other family raises, naming the ROADMAP item it waits
-    for."""
+    gemma3), the MoE family (dbrx, kimi-k2: every layer's FFN a
+    mixture of experts), the pure SSM family (Mamba2), and dense stacks
+    fed by patch embeddings (VLM: phi-3-vision) or frame embeddings
+    (audio: hubert, an encoder). The hybrid family raises, naming the
+    ROADMAP item it waits for."""
     if cfg.family == "hybrid":
-        why = ("the hybrid family (Jamba) waits for ROADMAP 'The remaining "
-               "model families', after MoE")
-    elif cfg.num_experts:
-        why = "MoE waits for ROADMAP 'The remaining model families'"
-    elif cfg.family in ("dense", "ssm", "vlm", "audio"):
+        why = ("the hybrid family (Jamba: attention, SSM and MoE layers "
+               "in a period) waits for ROADMAP 'The hybrid family', the "
+               "next slice")
+    elif cfg.family in ("dense", "moe", "ssm", "vlm", "audio"):
         return
     else:
         why = f"family {cfg.family!r} is unknown"
     raise NotImplementedError(
         f"{cfg.name}: ported are the dense (full or sliding-window "
-        f"attention), SSM (Mamba2), VLM and audio families; {why}")
+        f"attention), MoE, SSM (Mamba2), VLM and audio families; {why}")
 
 
 def window_array(cfg: ModelConfig):
@@ -69,10 +70,21 @@ def _band(cfg: ModelConfig, idx: int):
     return None
 
 
-def _stack(trees):
-    """Stack per-layer trees leaf-wise along a new axis 0."""
-    cols = zip(*(leaf_arrays(t) for t in trees))
-    return tree_unflatten(trees[0], [torch.stack(c) for c in cols])
+def _init_stack(cfg: ModelConfig, gen, device):
+    """`_init_layer` for each layer in turn, its leaves written into
+    (num_layers, ...) stacks allocated at the first layer: one layer's
+    tree at a time beside the stacks (stacking whole per-layer trees
+    would hold the model twice)."""
+    first = _init_layer(cfg, gen, device)
+    stacks = [t.new_empty((cfg.num_layers, *t.shape))
+              for t in leaf_arrays(first)]
+    out = tree_unflatten(first, stacks)
+    for i in range(cfg.num_layers):
+        layer = first if i == 0 else _init_layer(cfg, gen, device)
+        for s, t in zip(stacks, leaf_arrays(layer)):
+            s[i] = t
+        first = layer = None
+    return out
 
 
 def _unstack(tree, n: int):
@@ -83,7 +95,9 @@ def _unstack(tree, n: int):
 
 def _init_layer(cfg: ModelConfig, gen, device):
     """One layer's params. Stacks have period 1 (no hybrid yet), so every
-    layer is of the kind at position 0."""
+    layer is of the kind at position 0, and its FFN a mixture of experts
+    when position 0's is (the reference passes the position in the
+    period)."""
     pd = pdtype_of(cfg)
     D = cfg.d_model
     p = {"ln1": init_rms(D, pd, device)}
@@ -93,7 +107,8 @@ def _init_layer(cfg: ModelConfig, gen, device):
         p["mix"] = init_ssm(gen, cfg, device)
     if cfg.d_ff:
         p["ln2"] = init_rms(D, pd, device)
-        p["ffn"] = init_mlp(gen, cfg, device)
+        p["ffn"] = (init_moe(gen, cfg, device) if cfg.layer_is_moe(0)
+                    else init_mlp(gen, cfg, device))
     return p
 
 
@@ -109,8 +124,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device):
         params["embed"] = dense_init(gen, (V, D), pd, device, scale=0.02)
     if not cfg.embed_inputs or cfg.num_patches:
         params["proj_in"] = dense_init(gen, (D, D), pd, device)
-    params["blocks"] = {"pos0": _stack([_init_layer(cfg, gen, device)
-                                        for _ in range(cfg.num_layers)])}
+    params["blocks"] = {"pos0": _init_stack(cfg, gen, device)}
     params["final_norm"] = init_rms(D, pd, device)
     if cfg.is_encoder or not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (D, V), pd, device)
@@ -118,20 +132,27 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device):
 
 
 def _ffn(cfg, p, h):
+    """-> (h + the FFN's output, the router's aux loss: None but on a MoE
+    layer)."""
     # d_ff == 0 (Mamba2): no FFN; the reference adds zeros
-    if cfg.d_ff:
-        # the layer input's layout again (no op outside a mesh): after
-        # the mixer's row-parallel output DTensor would otherwise shard
-        # the sequence over "model", which its matmul propagation cannot
-        # carry through the flattened (B*S) rows; GSPMD needs no hint
-        h = shard(h, P(("pod", "data"), None, None))
-        h = h + mlp(p["ffn"], rms_norm(h, p["ln2"]))
-    return h
+    if not cfg.d_ff:
+        return h, None
+    # the layer input's layout again (no op outside a mesh): after the
+    # mixer's row-parallel output DTensor would otherwise shard the
+    # sequence over "model", which its matmul propagation cannot carry
+    # through the flattened (B*S) rows; GSPMD needs no hint
+    h = shard(h, P(("pod", "data"), None, None))
+    h_in = rms_norm(h, p["ln2"])
+    if cfg.layer_is_moe(0):
+        out, aux = moe_ffn(p["ffn"], cfg, h_in)
+        return h + out, aux
+    return h + mlp(p["ffn"], h_in), None
 
 
 def _layer(cfg, p, h, positions, window, band):
-    """One layer on the full sequence. -> (h, cache entry): the layer's
-    (k, v), or its SSM (conv_state, h_final)."""
+    """One layer on the full sequence. -> (h, aux (None but on a MoE
+    layer), cache entry): the layer's (k, v), or its SSM (conv_state,
+    h_final)."""
     h = shard(h, P(("pod", "data"), None, None))
     if cfg.layer_kind(0) == ATTN:
         a, entry = attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
@@ -139,7 +160,7 @@ def _layer(cfg, p, h, positions, window, band):
     else:
         a, entry = ssm_block(p["mix"], cfg, rms_norm(h, p["ln1"]),
                              chunk=cfg.ssd_chunk)
-    return _ffn(cfg, p, h + a), entry
+    return (*_ffn(cfg, p, h + a), entry)
 
 
 def _cache_names(cfg):
@@ -147,27 +168,30 @@ def _cache_names(cfg):
 
 
 def _run_blocks(cfg, params, h, *, collect_cache, remat):
-    """The layer stack on the full sequence. -> (h, caches): with
+    """The layer stack on the full sequence. -> (h, aux, caches): aux the
+    sum of the MoE layers' aux losses (None without any); with
     `collect_cache`, {"pos0": {name: (num_layers, ...)}}, each layer's
     entry written into a stack allocated at the first layer (so the
     stacks never sit beside a second copy), else {}."""
     positions = torch.arange(h.shape[1], device=h.device)
     windows = window_array(cfg)
-    stacks = {}
+    stacks, aux = {}, None
     for i, p in enumerate(_unstack(params["blocks"]["pos0"],
                                    cfg.num_layers)):
         args = (cfg, p, h, positions, windows[i], _band(cfg, i))
         if remat:
-            h, entry = checkpoint(_layer, *args, use_reentrant=False)
+            h, a, entry = checkpoint(_layer, *args, use_reentrant=False)
         else:
-            h, entry = _layer(*args)
+            h, a, entry = _layer(*args)
+        if a is not None:
+            aux = a if aux is None else aux + a
         if not collect_cache:
             continue
         for name, t in zip(_cache_names(cfg), entry):
             if i == 0:
                 stacks[name] = new_stack(t, cfg.num_layers)
             stacks[name][i] = t
-    return h, ({"pos0": stacks} if collect_cache else {})
+    return h, aux, ({"pos0": stacks} if collect_cache else {})
 
 
 def _embed(cfg, params, tokens):
@@ -202,12 +226,14 @@ def _lm_head_w(params):
 
 def forward(cfg: ModelConfig, params, batch, *, collect_cache=False,
             remat=None):
-    """Full-sequence forward. Returns (loss, aux_dict); with
+    """Full-sequence forward. Returns (loss, aux_dict): the loss plus 0.01
+    times the MoE layers' summed aux loss, aux_dict["aux"] that sum (0
+    for the dense and SSM families, whose loss adds nothing); with
     `collect_cache`, aux_dict["cache"] holds the per-layer caches."""
     check_supported(cfg)
     h, labels, mask = embed_batch(cfg, params, batch)
     remat = cfg.remat if remat is None else remat
-    h, caches = _run_blocks(cfg, params, h, collect_cache=collect_cache,
+    h, aux, caches = _run_blocks(cfg, params, h, collect_cache=collect_cache,
                             remat=remat)
     h = rms_norm(h, params["final_norm"])
     w_out = _lm_head_w(params)
@@ -217,7 +243,11 @@ def forward(cfg: ModelConfig, params, batch, *, collect_cache=False,
     else:
         logits = shard(h @ w_out, P(("pod", "data"), None, "model"))
         loss = cross_entropy(logits, labels, mask)
-    out = {"loss": loss}
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    else:
+        loss = loss + 0.01 * aux
+    out = {"loss": loss, "aux": aux}
     if collect_cache:
         out["cache"] = caches
     return loss, out
@@ -229,8 +259,9 @@ def logits_fn(cfg: ModelConfig, params, batch):
     """Last-position logits (B, 1, V) and the per-layer caches, stacked
     like the params (prefill)."""
     check_supported(cfg)
-    h, caches = _run_blocks(cfg, params, embed_batch(cfg, params, batch)[0],
-                            collect_cache=True, remat=False)
+    h, _, caches = _run_blocks(cfg, params,
+                               embed_batch(cfg, params, batch)[0],
+                               collect_cache=True, remat=False)
     h = rms_norm(h[:, -1:, :], params["final_norm"])
     return h @ _lm_head_w(params), caches
 
@@ -282,7 +313,7 @@ def _layer_decode(cfg, p, h, window, index, entry):
     else:
         a = ssm_decode(p["mix"], cfg, rms_norm(h, p["ln1"]), entry["conv"],
                        entry["h"])[0]
-    return _ffn(cfg, p, h + a)
+    return _ffn(cfg, p, h + a)[0]
 
 
 @torch.inference_mode()

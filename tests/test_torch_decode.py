@@ -335,7 +335,8 @@ def _rel(got, want, rows=False):
 @pytest.mark.parametrize("arch,layers", [("gemma3-4b", 2),
                                          ("starcoder2-3b", 2),
                                          ("mamba2-130m", 2),
-                                         ("mamba2-130m", 24)])
+                                         ("mamba2-130m", 24),
+                                         ("dbrx-132b", 2)])
 def test_bf16_decode_spread_is_within_the_chip_bound(arch, layers):
     """Where `chip_smoke.py`'s decode bound comes from: in bf16, 24
     teacher-forced tokens through `decode_step` against `logits_fn`
@@ -343,9 +344,11 @@ def test_bf16_decode_spread_is_within_the_chip_bound(arch, layers):
     prefill's distance from an fp32 prefill of the same weights (reduced
     widths; Mamba2 also at its full depth, where random weights amplify
     rounding layer by layer). The CPU's ratios are 0 for the attention
-    models (a bf16 product rounds the same per row whatever the rows) and
-    0.84-1.05 for Mamba2 (decode's recurrence and conv step round apart
-    from the chunked scan and the full conv); the card's bound,
+    models (a bf16 product rounds the same per row whatever the rows;
+    dbrx's MoE at 2 layers, its decode check's depth on the card, routes
+    its 24 tokens alike in both, drop-free: the reduced capacity factor
+    is 16) and 0.84-1.05 for Mamba2 (decode's recurrence and conv step
+    round apart from the chunked scan and the full conv); the card's bound,
     `DECODE_BF16_K`, is about twice the largest, so these stay below
     two thirds of it."""
     bound = _chip_smoke().DECODE_BF16_K
@@ -380,14 +383,16 @@ def _bf16x3(t):
 
 @pytest.mark.parametrize("arch,layers", [("gemma3-4b", 34),
                                          ("starcoder2-3b", 30),
-                                         ("mamba2-130m", 24)])
+                                         ("mamba2-130m", 24),
+                                         ("dbrx-132b", 2)])
 def test_fp32_decode_is_within_the_chip_bound(arch, layers, monkeypatch):
     """Where `chip_smoke.py`'s fp32 decode bound comes from: in fp32 at
     full depth (reduced widths), 24 teacher-forced tokens through
     `decode_step` against `logits_fn` (last logits per row, each cache
     leaf), with the prefill's SSD inputs rounded as the card's bf16x3
     kernel rounds them. Attention decodes what its prefill computes (0
-    here); Mamba2 departs by about 9e-5. The card's bound,
+    here), as does dbrx's MoE, drop-free at 2 layers (its decode check's
+    depth on the card); Mamba2 departs by about 9e-5. The card's bound,
     `DECODE_FP32_TOL`, is about ten times that, so these stay below half
     of it."""
     bound = _chip_smoke().DECODE_FP32_TOL

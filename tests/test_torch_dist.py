@@ -280,9 +280,18 @@ WORKER = textwrap.dedent("""
     from repro_torch.dist.api import use_mesh
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     mesh = make_mesh((2, 2), ("data", "model"))
+    # the expert counts each MoE dispatch ran over (EP: 2 a "model" rank)
+    seen, dispatch = [], moe._dispatch_compute
+    def counted(xf, w, sel, wi_gate, *a, **k):
+        seen.append((int(wi_gate.shape[0]), int(xf.shape[0])))
+        return dispatch(xf, w, sel, wi_gate, *a, **k)
+    moe._dispatch_compute = counted
     for arch, over in (("qwen3-8b", {}),
-                       ("starcoder2-3b", {"banded_attention": True})):
+                       ("starcoder2-3b", {"banded_attention": True}),
+                       ("dbrx-132b", {"moe_ep": True}),
+                       ("dbrx-132b", {"moe_ep": True, "fsdp": True})):
         cfg = dataclasses.replace(get_config(arch).reduced(), **over)
         params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         rng = np.random.default_rng(1)
@@ -290,23 +299,38 @@ WORKER = textwrap.dedent("""
             0, cfg.vocab_size, (4, 128)).astype(np.int32))
             for k in ("tokens", "labels")}
         leaves = [t.requires_grad_(True) for t in leaf_arrays(params)]
-        want, _ = M.forward(cfg, params, batch)
+        # the cross-entropy: the loss less its aux term (0 but for MoE,
+        # whose aux under EP is, as the reference's, the mean over the
+        # data ranks of each one's own, not the aux of the whole batch)
+        want, out = M.forward(cfg, params, batch)
+        want = want - 0.01 * out["aux"]
         gw = torch.autograd.grad(want, leaves)
+        aux_want = sum(float(M.forward(cfg, params, {
+            k: v[h:h + 2] for k, v in batch.items()})[1]["aux"])
+            for h in (0, 2)) / 2 if cfg.num_experts else 0.0
         p = SH.distribute(params, SH.named(SH.param_specs(cfg, params),
                                            params, mesh))
         b = SH.distribute(batch, SH.named(SH.batch_specs(cfg, batch),
                                           batch, mesh))
         wq = p["blocks"]["pos0"]["mix"]["wq"]
         assert wq.to_local().shape[-1] * 2 == wq.shape[-1]
+        seen.clear()
         with use_mesh(mesh), implicit_replication():
-            got, _ = M.forward(cfg, p, b)
+            got, out = M.forward(cfg, p, b)
+            got = got - 0.01 * out["aux"]
             gg = torch.autograd.grad(got, leaf_arrays(p))
         got = float(got.full_tensor())
+        aux = out["aux"]
+        aux = float(aux.full_tensor() if hasattr(aux, "full_tensor")
+                    else aux)
         gerr = max(float((g.full_tensor() - w).abs().max()
                          / w.abs().max().clamp(min=1)) for g, w in zip(gg, gw))
         if rank == 0:
-            print(f"LOSS {arch} {float(want)!r} {got!r} {gerr!r}",
+            tag = arch + ("+fsdp" if cfg.fsdp else "")
+            print(f"LOSS {tag} {float(want)!r} {got!r} {gerr!r}",
                   flush=True)
+            print(f"AUX {tag} {aux_want!r} {aux!r}", flush=True)
+            print(f"DISPATCH {tag} {sorted(set(seen))}", flush=True)
     # the CE alone, vocabulary split over "model": only all-reduces
     import torch.nn.functional as F
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -368,17 +392,34 @@ def four_ranks():
 
 def test_dtensor_forward_on_four_cpu_ranks(four_ranks):
     """Reduced qwen3-8b and starcoder2-3b (the latter banded, so its
-    attention runs `swa_flash` through the custom op's sharding rule)
-    with params and batch as DTensors on a (2, 2) gloo mesh: the loss
-    equals the unsharded port forward within 1e-5 (fp32), and every
-    gradient (the embedding's a partial sum over the data ranks) within
-    1e-5 of its scale."""
+    attention runs `swa_flash` through the custom op's sharding rule),
+    and reduced dbrx-132b under `moe_ep`, with FSDP off and on (its MoE
+    the expert-parallel route: 2 of 4 experts a "model" rank, tokens
+    sharded over "data", partial outputs summed over "model"; the
+    unsharded forward takes the GSPMD route), with params and batch as
+    DTensors on a (2, 2) gloo mesh: the cross-entropy (the loss less
+    0.01 times the aux loss) equals the unsharded port forward's within
+    1e-5 (fp32), and every gradient of it (the embedding's a partial sum
+    over the data ranks) within 1e-5 of its scale. The aux loss (0 but
+    for MoE) equals the mean over the data ranks of the unsharded aux
+    of each one's rows (the reference's `pmean`) within 1e-6."""
     losses = [line.split() for line in four_ranks
               if line.startswith("LOSS")]
-    assert [l[1] for l in losses] == ["qwen3-8b", "starcoder2-3b"]
+    assert [l[1] for l in losses] == ["qwen3-8b", "starcoder2-3b",
+                                      "dbrx-132b", "dbrx-132b+fsdp"]
     for _, arch, want, got, gerr in losses:
         assert abs(float(want) - float(got)) <= 1e-5, (arch, want, got)
         assert float(gerr) <= 1e-5, (arch, gerr)
+    auxes = [line.split() for line in four_ranks if line.startswith("AUX")]
+    assert [a[1] for a in auxes] == [l[1] for l in losses]
+    for _, arch, want, got in auxes:
+        assert abs(float(want) - float(got)) <= 1e-6, (arch, want, got)
+        assert (float(got) > 0) == arch.startswith("dbrx"), (arch, got)
+    # each rank dispatched its own 256 of the 512 tokens to its 2 experts
+    routes = {l.split()[1]: l.split(" ", 2)[2] for l in four_ranks
+              if l.startswith("DISPATCH")}
+    assert routes["dbrx-132b"] == routes["dbrx-132b+fsdp"] == "[(2, 256)]"
+    assert routes["qwen3-8b"] == "[]", routes
 
 
 def test_vocab_parallel_ce_on_four_cpu_ranks(four_ranks):

@@ -278,15 +278,16 @@ def test_cli_records_not_ported_and_skipped_pairs(tmp_path, capsys):
     too is `[skip]` (hubert, an encoder, has no decode step); neither is
     a failure."""
     out = tmp_path / "rec.jsonl"
-    for arch, shape in (("dbrx-132b", "train_4k"),
+    for arch, shape in (("jamba-v0.1-52b", "train_4k"),
                         ("hubert-xlarge", "decode_32k"),
                         ("qwen3-8b", "long_500k")):
         assert DR.main(["--arch", arch, "--shape", shape,
                         "--json", str(out)]) == 0
     text = capsys.readouterr().out
     recs = [json.loads(l) for l in out.read_text().splitlines()]
-    assert "[not ported] dbrx-132b x train_4k: dbrx-132b: ported are" in text
-    assert "MoE waits for ROADMAP" in recs[0]["not_ported"]
+    assert ("[not ported] jamba-v0.1-52b x train_4k: jamba-v0.1-52b: "
+            "ported are") in text
+    assert "the hybrid family" in recs[0]["not_ported"]
     assert recs[1] == {"arch": "hubert-xlarge", "shape": "decode_32k",
                        "skipped": "encoder-only architecture has no "
                                   "decode step"}
@@ -298,9 +299,10 @@ def test_cli_records_not_ported_and_skipped_pairs(tmp_path, capsys):
 
 def test_all_pairs_triage_as_the_cli_counts_them():
     """`--all`'s 40 pairs, sorted as `main` sorts them (`triage`, no
-    tracing): 23 records, 5 `[skip]` (hubert's two decode shapes, and
-    long_500k of the three full-attention archs), 12 `[not ported]` (the
-    MoE archs dbrx and kimi-k2, the hybrid jamba)."""
+    tracing): 29 records, 7 `[skip]` (hubert's two decode shapes, and
+    long_500k of the five full-attention archs: qwen3, deepseek,
+    phi-3-vision and the MoE archs dbrx and kimi-k2), 4 `[not ported]`
+    (the hybrid jamba)."""
     from repro_torch.configs import ASSIGNED_ARCHS
     kinds = {"record": [], "skip": [], "not ported": []}
     for a in ASSIGNED_ARCHS:
@@ -313,14 +315,15 @@ def test_all_pairs_triage_as_the_cli_counts_them():
             except DR.NotPorted:
                 kinds["not ported"].append((a, s))
     assert {k: len(v) for k, v in kinds.items()} == \
-        {"record": 23, "skip": 5, "not ported": 12}
-    assert {a for a, _ in kinds["not ported"]} == \
-        {"dbrx-132b", "kimi-k2-1t-a32b", "jamba-v0.1-52b"}
+        {"record": 29, "skip": 7, "not ported": 4}
+    assert {a for a, _ in kinds["not ported"]} == {"jamba-v0.1-52b"}
     assert sorted(kinds["skip"]) == sorted(
         [("hubert-xlarge", "decode_32k"), ("hubert-xlarge", "long_500k"),
          ("qwen3-8b", "long_500k"), ("deepseek-67b", "long_500k"),
-         ("phi-3-vision-4.2b", "long_500k")])
-    for a in ("hubert-xlarge", "phi-3-vision-4.2b"):
+         ("phi-3-vision-4.2b", "long_500k"), ("dbrx-132b", "long_500k"),
+         ("kimi-k2-1t-a32b", "long_500k")])
+    for a in ("hubert-xlarge", "phi-3-vision-4.2b", "dbrx-132b",
+              "kimi-k2-1t-a32b"):
         assert (a, "train_4k") in kinds["record"]
         assert (a, "prefill_32k") in kinds["record"]
 

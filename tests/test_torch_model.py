@@ -159,13 +159,13 @@ def test_flash_attention_matches_reference():
 
 def test_unported_families_say_where_they_wait():
     from repro_torch.configs import get_config as tget
-    # dense (full and sliding-window attention), SSM, VLM and audio
+    # dense (full and sliding-window attention), MoE, SSM, VLM and audio
     # inputs: ported
     for name in ("opt-125m", "mamba2-130m", "starcoder2-3b", "gemma3-4b",
-                 "phi-3-vision-4.2b", "hubert-xlarge"):
+                 "phi-3-vision-4.2b", "hubert-xlarge", "dbrx-132b",
+                 "kimi-k2-1t-a32b"):
         TM.check_supported(tget(name).reduced())
-    for name, what in (("jamba-v0.1-52b", "hybrid"), ("dbrx-132b", "MoE"),
-                       ("kimi-k2-1t-a32b", "MoE")):
+    for name, what in (("jamba-v0.1-52b", "hybrid"),):
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             TM.check_supported(tget(name).reduced())
         assert what in str(e.value), (name, str(e.value))

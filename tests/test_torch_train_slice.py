@@ -18,8 +18,10 @@ member's flight of the newest snapshot landed before the restore read
 (tier in-memory) or held in the air by a stopped SMP (tier raim5), and
 a round the failed member skipped (tier raim5); the restore records
 which, and every restore is byte-exact; `chip_smoke.py`'s rule that
-derives the expected tier from that record; and a session retrying a
-cadence persist that fired no round."""
+derives the expected tier from that record; its rule that holds a
+durable run's persisted steps, the session's closing persist among them,
+against the store's families; and a session retrying a cadence persist
+that fired no round."""
 import glob
 import math
 import os
@@ -73,9 +75,71 @@ def _train(tmp_path, arch, seq, device_encode, batch=2, backend="reft",
     return out
 
 
-@pytest.mark.parametrize("device_encode", ["auto", "on"])
-def test_train_recovers_through_both_tiers(device_encode, tmp_path):
-    _train(tmp_path, "opt-125m", 64, device_encode)
+@pytest.mark.parametrize("device_encode,arch,extra", [
+    pytest.param("auto", "opt-125m", (), id="auto"),
+    pytest.param("on", "opt-125m", (), id="on"),
+    pytest.param("on", "dbrx-132b", ("--delta",), id="dbrx-132b-delta")])
+def test_train_recovers_through_both_tiers(device_encode, arch, extra,
+                                           tmp_path):
+    """opt-125m with the host and the device encode path; reduced
+    dbrx-132b (every layer MoE) under `--delta`: the router's
+    touched-expert mask feeds the dirty provider, which rules every byte
+    dirty (the expert leaves are stacked over the layers), so every
+    flight is a keyframe and no bucket is skipped."""
+    out = _train(tmp_path, arch, 64, device_encode, extra=extra)
+    if extra:
+        prov = re.search(r"expert_provider calls=(\d+) touched=\[([^]]*)\] "
+                         r"dirty_bytes=\[(\d+)\] of (\d+) "
+                         r"provider_clean_buckets=(\d+)", out)
+        assert prov, out
+        touched = [int(t) for t in prov.group(2).split(",")]
+        assert len(touched) == int(prov.group(1)) and max(touched) == 4
+        assert prov.group(3) == prov.group(4) and prov.group(5) == "0"
+        assert re.search(r"delta_flights=0 keyframes=\d+ skipped_buckets=0",
+                         out), out
+
+
+def test_run_frees_its_last_state_without_a_collection(tmp_path,
+                                                       monkeypatch):
+    """`launch.train.run` under REFT with a mid-flight failure, the
+    cyclic collector off: once it returns, no `CheckpointSession` is
+    alive and none of the last state's tensors (weak references taken
+    as the step returned them): a finished flight drops the leaves it
+    pinned."""
+    import gc
+    import weakref
+    from repro_torch.api.session import CheckpointSession
+    from repro_torch.launch import train
+    from repro_torch.train import steps
+
+    refs = []
+    make = steps.make_train_step
+
+    def watched(cfg, *a, **k):
+        fn = make(cfg, *a, **k)
+
+        def step(state, batch):
+            new, metrics = fn(state, batch)
+            refs[:] = [weakref.ref(t) for t in leaf_arrays(new)]
+            return new, metrics
+        return step
+
+    monkeypatch.setattr(steps, "make_train_step", watched)
+    gc.collect()
+    gc.disable()
+    try:
+        rep = train.run(["--device", "cpu", "--arch", "opt-125m", "--reduced",
+                         "--steps", "6", "--batch", "2", "--seq", "32",
+                         "--snapshot-every", "2", "--inject", "4:software",
+                         "--ckpt-dir", str(tmp_path)])
+        assert len(rep["losses"]) >= 6 and refs
+        alive = [r for r in refs if r() is not None]
+        sessions = [o for o in gc.get_objects()
+                    if isinstance(o, CheckpointSession)]
+    finally:
+        gc.enable()
+    assert not sessions
+    assert not alive, f"{len(alive)} of {len(refs)} leaves alive"
 
 
 def test_mamba2_train_recovers_through_both_tiers(tmp_path):
@@ -262,6 +326,50 @@ def test_chip_smoke_first_tier_follows_the_record(first, want, monkeypatch):
     del bare["recoveries"][0]["flights"]
     with pytest.raises(AssertionError, match="no record"):
         chip_smoke._want_tiers(bare, "t")
+
+
+@pytest.mark.parametrize("stats,persisted,fams,fails", [
+    # every cadence round failed or fired nothing: the closing one counts
+    ({"persist_upload_bytes": 7}, [11], [11], None),
+    ({"persist": 2, "persist_upload_bytes": 7}, [1, 10, 12], [10, 12], None),
+    ({"persist_upload_bytes": 7}, [], [11], r"persisted steps \[\]"),
+    ({"persist_upload_bytes": 7}, [10], [10, 12], r"not persisted: \[12\]"),
+    ({}, [11], [11], "uploads None"),
+    ({"persist_upload_bytes": 7}, [11], [], r"manifest \[\]"),
+])
+def test_chip_smoke_persist_rule(stats, persisted, fams, fails, monkeypatch):
+    """chip_smoke.py's phase-5 rule on a durable run's report and store:
+    a round persisted (the closing persist counted), bytes uploaded, and
+    every family in the store one the run reports persisted."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    rep = {"stats": stats, "persisted_steps": persisted}
+    if fails is None:
+        chip_smoke._persists_held(rep, set(fams), "t")
+    else:
+        with pytest.raises(AssertionError, match=fails):
+            chip_smoke._persists_held(rep, set(fams), "t")
+
+
+def test_objstore_run_reports_its_closing_persist(tmp_path, monkeypatch):
+    """`launch.train.run` under `objstore` reports the step of every
+    persist that completed, the session's closing persist (of the last
+    snapshot, landed by then) the newest; every family in the store
+    is one of them, as chip_smoke.py's phase-5 rule holds."""
+    from repro_torch.launch import train
+    from repro_torch.store import LocalObjectStore, object_families
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    rep = train.run(["--device", "cpu", "--arch", "opt-125m", "--reduced",
+                     "--steps", "6", "--batch", "2", "--seq", "32",
+                     "--backend", "objstore", "--ckpt-every", "4",
+                     "--snapshot-every", "2", "--verify-restores",
+                     "--ckpt-dir", str(tmp_path)])
+    fams = object_families(LocalObjectStore(str(tmp_path / "objstore")),
+                           "families")
+    assert rep["persisted_steps"][-1] == max(rep["snapshot_crcs"]), rep
+    assert len(rep["persisted_steps"]) == rep["stats"].get("persist", 0) + 1
+    chip_smoke._persists_held(rep, fams, "t")
 
 
 @pytest.mark.parametrize("backend,fired", [("reft", [3, 4, 8]),
