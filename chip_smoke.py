@@ -27,9 +27,12 @@ Phases, each printed as it ends; any failure exits non-zero:
      1), two launches bit-equal, timed beside the bound of the products
      they do (bf16x3) and the serial kernels' fp32 bound, and the
      forward alone at the serving path's calls (mamba2-130m's prefill,
-     32 x 32768, and the decode check's, 128 x 24), the whole batch
+     32 x 32768, and the decode check's, 128 x 24; jamba-v0.1-52b's, 128
+     heads of state 16, 1 x 32768 and 36 x 24), the whole batch
      launched and each row held against the plain scan on that row in
-     fp32 and in fp64; the sliding-window flash
+     fp32 and in fp64, and both kernels at the hybrid train check's
+     shape (1 x 4096, Jamba's heads) held and timed beside their bounds;
+     the sliding-window flash
      attention's forward and backward kernels (the fp32 route's CUDA-core
      kernels, the bf16 route's tensor-core kernels, whose backward time
      includes its D pre-pass) against the plain flash attention and its
@@ -39,7 +42,9 @@ Phases, each printed as it ends; any failure exits non-zero:
      window), the forward alone in bf16 at the serving path's prefill
      calls (S 32768: gemma3-4b's local and global layers at its 8 rows,
      starcoder2-3b's at its 12, phi-3-vision-4.2b's, hd 96, at its 4,
-     dbrx-132b's, 8 KV heads of 6 query heads each, at its 1),
+     dbrx-132b's, 8 KV heads of 6 query heads each, at its 1,
+     jamba-v0.1-52b's, 8 KV heads of 4, at its 1; and Jamba's train
+     shape, 1 x 4096, forward and backward),
      the whole batch launched and each row held against the
      plain version on that row, timed at the batch and at one row, with
      SDPA's memory-efficient attention timed beside them as a yardstick,
@@ -64,9 +69,9 @@ Phases, each printed as it ends; any failure exits non-zero:
      engine's own record of the flights that had landed) and a node
      failure (recovered by a RAIM5 decode), every restored state checked
      byte for byte: opt-125m (seq 256), mamba2-130m (seq 2048, the SSD
-     kernels in every layer), then starcoder2-3b (4 of its 30 layers, seq
+     kernels in every layer), then starcoder2-3b (2 of its 30 layers, seq
      16384, batch 1, the swa_flash kernels in every layer), then
-     hubert-xlarge at full depth (48 layers, seq 4096, batch 2, frame
+     hubert-xlarge (24 of its 48 layers, seq 4096, batch 1, frame
      embeddings, non-causal swa_flash at hd 80 in every layer); the
      launch counts are set to 0 just before each run and read just after
      it, and the device memory allocated once the run returned (before
@@ -112,7 +117,10 @@ Phases, each printed as it ends; any failure exits non-zero:
      `--delta` on reduced dbrx-132b at seq 2048 (the fp32 swa_flash
      kernels in every layer, the two failures, each restore byte-exact),
      each call of the touched-expert provider printed, every byte ruled
-     dirty and no bucket clean (one path); then `MultiStageGroup(2, 2)`
+     dirty and no bucket clean (one path); then the hybrid delta run,
+     the same on reduced jamba-v0.1-52b (an SSM layer with an MLP, then
+     attention with the MoE: the SSD and the fp32 swa_flash kernels,
+     forward and backward; one path); then `MultiStageGroup(2, 2)`
      over the state after a train step, one node lost in each stage,
      both stages recovered byte-exact, each stage's tier printed (one
      path);
@@ -120,9 +128,13 @@ Phases, each printed as it ends; any failure exits non-zero:
      after it): gemma3-4b (34 layers), starcoder2-3b (30), mamba2-130m
      (24) and phi-3-vision-4.2b (32; its prompts 576 patch embeddings,
      then tokens) at full depth, dbrx-132b with its depth cut to 8 of 40
-     layers (its decode check on a 2-layer model of its widths at a
-     drop-free capacity, the share of routes its prefill and decode pick
-     alike printed), weights from a seed on the card, each through
+     layers and jamba-v0.1-52b with its depth cut to 16 of 32 (two
+     periods of 8: 7 SSM layers and an attention layer, the MoE on every
+     other layer; every cache position `pos0..pos7` walked) (each decode
+     check on a 2-layer model of the model's widths at a drop-free
+     capacity, Jamba's attention with an MLP then an SSM layer with the
+     MoE; the share of routes its prefill and decode pick alike
+     printed), weights from a seed on the card, each through
      `models.model`'s `logits_fn` (prefill_32k's 32768 positions, timed; its
      caches shaped as `init_cache`'s), a decode check (24 teacher-forced
      tokens through `decode_step` from an empty cache of the decode
@@ -152,7 +164,12 @@ Phases, each printed as it ends; any failure exits non-zero:
      to the plain tensors' (counts set to 0 before each run: starcoder2's
      and dbrx-132b's swa_flash launches through its custom op's sharding
      rule; dbrx-132b at full width, one layer, S 4096: the MoE forward
-     and backward, the GSPMD route on one rank); (d)
+     and backward, the GSPMD route on one rank); (e) the hybrid train
+     check: one period of jamba-v0.1-52b at full width (8 layers, bf16,
+     1 x 4096), forward and backward with the kernels and no optimizer,
+     every gradient finite with a nonzero norm, the loss held against
+     the same forward through the plain versions, the peak printed (one
+     path, after (d)); (d)
      reshard-on-restore: full-width opt-125m's state snapshotted by an SG
      of 4, restored for each coordinate of a (data 2, model 2) mesh
      through `RestoreTarget(shardings=state_specs(...), mesh, coord)`,
@@ -172,6 +189,7 @@ The module body stays import-light: the snapshot managers start with
 `spawn` and re-import this file.
 """
 import bisect
+import contextlib
 import gc
 import importlib
 import json
@@ -193,18 +211,23 @@ RUN_ARGS = ["--backend", "reft", "--sg-size", "4", "--steps", "12",
             "--inject", "6:software", "--inject", "10:node",
             "--device", "cuda", "--verify-restores"]
 # (arch, seq, batch, layers (None: full depth), kernels that must launch
-# on that path). starcoder2-3b's depth is cut to 4 of 30 layers: at full
+# on that path). starcoder2-3b's depth is cut to 2 of 30 layers: at full
 # depth its REFT state (43.1 GB) would not fit three times on the card
 # (snapshots in flight hold the old state while the step builds the new)
 # nor four SMPs' buffers in /dev/shm; every width is kept. hubert-xlarge
-# runs at full width and full depth (48 layers, frame embeddings, hd 80
-# through the padded swa_flash kernels, non-causal, seq 4096).
+# runs at full width (frame embeddings, hd 80 through the padded
+# swa_flash kernels, non-causal, seq 4096) with 24 of its 48 layers and
+# 1 row. Both cuts keep the script inside its time limit: with 4
+# starcoder2-3b layers, hubert-xlarge at full depth and 2 rows, the
+# script took 1380 s on an NVIDIA H100 80GB HBM3 at 700 W (the limit is
+# 1200 s), their two paths 455 s of it, most of that in the flights and restores of their 8.4
+# and 12.6 GB states (now 5.7 and 6.3 GB).
 PATHS = [("opt-125m", 256, 2, None, ("encode_bucket",)),
          ("mamba2-130m", 2048, 2, None,
           ("encode_bucket", "ssd_scan", "ssd_scan_bwd")),
-         ("starcoder2-3b", 16384, 1, 4,
+         ("starcoder2-3b", 16384, 1, 2,
           ("encode_bucket", "swa_flash", "swa_flash_bwd")),
-         ("hubert-xlarge", 4096, 2, None,
+         ("hubert-xlarge", 4096, 1, 24,
           ("encode_bucket", "swa_flash", "swa_flash_bwd"))]
 SG = 4                             # SG members on every path
 # the durable tiers' path (phase 5): opt-125m at full width under the
@@ -238,6 +261,18 @@ DELTA_ARGS = ["--arch", "opt-125m", "--seq", "256", "--batch", "2",
 MOE_DELTA = "moe delta run"
 MOE_DELTA_ARGS = ["--arch", "dbrx-132b", "--reduced", "--seq", "2048",
                   "--batch", "2", "--delta", *RUN_ARGS]
+# the hybrid delta run (phase 7): reduced jamba-v0.1-52b (a period of two
+# layers: an SSM layer with an MLP, then attention with the MoE; fp32, S
+# 2048: the SSD kernels and the fp32 swa_flash kernels) under `--delta`
+HYBRID_DELTA = "hybrid delta run"
+HYBRID_DELTA_ARGS = ["--arch", "jamba-v0.1-52b", "--reduced", "--seq",
+                     "2048", "--batch", "2", "--delta", *RUN_ARGS]
+# (path, its arguments, the kernels that must launch on it)
+MOE_RUNS = [(MOE_DELTA, MOE_DELTA_ARGS,
+             ("encode_bucket", "swa_flash", "swa_flash_bwd")),
+            (HYBRID_DELTA, HYBRID_DELTA_ARGS,
+             ("encode_bucket", "ssd_scan", "ssd_scan_bwd", "swa_flash",
+              "swa_flash_bwd"))]
 DELTA_STEPS = 4                    # the chain: a keyframe, then 3 deltas
 DELTA_TOUCHED = 4                  # leaves the chain's update touches
 STAGES = "stage run"
@@ -270,12 +305,24 @@ BF16_FLOPS = 989.4e12              # H100 SXM bf16 dense tensor cores
 # its expert count (drop-free: capacity is per call, so at the published
 # 1.25 a 24-token prefill may drop a token the B-token decode keeps);
 # the timed prefill and decode run at the published 1.25.
+# jamba-v0.1-52b is served at full width with its depth cut to 16 of 32
+# layers, two periods of 8 (52.0 GB of weights; a full-width period with
+# its embedding and head is 26.5 GB, so 32 layers do not fit): 1 prefill
+# row and 36 decode_32k rows, as many as the dry-run's (1, 1) trace
+# predicts below ~72 GB (a prefill row 63.2 GB, two 74.5 GB; 36 decode
+# rows 71.8 GB, 40 rows 74.0 GB; PERF.md §4); its decode check on a 2-layer model of its
+# widths (the fp32 period of 8 would be 53.1 GB beside its bf16 twin)
+# with the published pairings, attention with an MLP, then an SSM layer
+# with the MoE (CHECK_OVERRIDES), drop-free as dbrx-132b's.
 SERVING = "serving"
 SERVE_RUNS = [("gemma3-4b", 8, "decode_32k", 12, 2, None, None),
               ("starcoder2-3b", 12, "long_500k", 1, 1, None, None),
               ("mamba2-130m", 32, "decode_32k", 128, 128, None, None),
               ("phi-3-vision-4.2b", 4, "decode_32k", 5, 1, None, None),
-              ("dbrx-132b", 1, "decode_32k", 18, 1, 8, 2)]
+              ("dbrx-132b", 1, "decode_32k", 18, 1, 8, 2),
+              ("jamba-v0.1-52b", 1, "decode_32k", 36, 8, 16, 2)]
+# the decode check's own model (`check_layers`): these fields replaced
+CHECK_OVERRIDES = {"jamba-v0.1-52b": {"attn_period": 2, "attn_index": 0}}
 SERVE_T = 24                       # teacher-forced tokens held vs logits_fn
 SERVE_TIMED = 16                   # decode steps timed at the full Smax
 # decode's bf16 bound: for the logits (each request's row) and each cache
@@ -292,8 +339,10 @@ DECODE_BF16_K = 2.0
 # kernel's bf16x3 products round them; the bounds are about ten times
 # that (tests/test_torch_decode.py::test_fp32_decode_is_within_the_chip_bound);
 # a VLM decodes tokens through the dense family's attention, a MoE through
-# it and its experts, drop-free (tests/test_torch_decode.py: 0 on the CPU)
-DECODE_FP32_TOL = {"dense": 1e-4, "vlm": 1e-4, "moe": 1e-4, "ssm": 1e-3}
+# it and its experts, drop-free (tests/test_torch_decode.py: 0 on the CPU);
+# a hybrid through both and an SSM layer, held at the SSM's bound
+DECODE_FP32_TOL = {"dense": 1e-4, "vlm": 1e-4, "moe": 1e-4, "ssm": 1e-3,
+                   "hybrid": 1e-3}
 # phase 9: distribution and the dry-run. (a) the dry-run on the production
 # 16x16 mesh for these pairs (one chip's sharded fake program, no device);
 # (b) phase 8's prefill calls dry-run on a (1, 1) mesh, the predicted peak
@@ -307,12 +356,25 @@ DRY_PAIRS = [("starcoder2-3b", "train_4k"), ("starcoder2-3b", "prefill_32k"),
              ("starcoder2-3b", "decode_32k"), ("starcoder2-3b", "long_500k"),
              ("gemma3-4b", "decode_32k"), ("mamba2-130m", "train_4k"),
              ("hubert-xlarge", "train_4k"),
-             ("phi-3-vision-4.2b", "prefill_32k"), ("dbrx-132b", "train_4k")]
+             ("phi-3-vision-4.2b", "prefill_32k"), ("dbrx-132b", "train_4k"),
+             ("jamba-v0.1-52b", "train_4k")]
 PEAK_RATIO = (0.85, 1.15)
 # (arch, seq, batch, layers): dbrx-132b at full width, one layer, train_4k's
 # length (its MoE forward and backward; one rank: the GSPMD route)
 DTENSOR_RUNS = [("opt-125m", 256, 2, None), ("starcoder2-3b", 16384, 1, 4),
                 ("dbrx-132b", 4096, 1, 1)]
+# the hybrid train check (phase 9): (arch, seq, batch, layers): one period
+# of Jamba at full width (8 layers: 13.27e9 params, 26.5 GB in bf16, and
+# as much again of gradients), train_4k's length, forward and backward
+# with the kernels and no optimizer; its loss held against the same
+# forward through the plain versions within HYBRID_LOSS_TOL of the loss
+# (one bf16 ulp, 2**-8: the kernels and the plain versions differ in the
+# order of their fp32 sums and where they round to bf16, each layer's
+# output entering the bf16 residual stream at that ulp, and the loss
+# averages 4096 tokens' cross-entropies)
+HYBRID_TRAIN = ("jamba-v0.1-52b", 4096, 1, 8)
+HYBRID_TRAIN_PATH = "hybrid train check"
+HYBRID_LOSS_TOL = 2.0 ** -8
 RESHARD_ARCH, RESHARD_MESH = "opt-125m", (2, 2)
 DRY_RUN = (
     "import dataclasses, json, sys\n"
@@ -340,7 +402,7 @@ DRY_RUN = (
 # `_serve_batch`). hubert-xlarge (hd 80) and phi-3-vision-4.2b (hd 96)
 # run the hd-128 kernels on zero-filled columns.
 SWA_CASES = [("starcoder2-3b", 1, 16384, 2, 12, 128, 4096, True, True),
-             ("hubert-xlarge", 2, 4096, 16, 1, 80, None, False, True),
+             ("hubert-xlarge", 1, 4096, 16, 1, 80, None, False, True),
              ("gemma3-4b local", 1, 8192, 4, 2, 256, 1024, True, False),
              ("gemma3-4b global", 1, 8192, 4, 2, 256, None, True, False),
              ("gemma3-4b prefill local", 1, 32768, 4, 2, 256, 1024, True,
@@ -352,6 +414,9 @@ SWA_CASES = [("starcoder2-3b", 1, 16384, 2, 12, 128, 4096, True, True),
              ("phi-3-vision-4.2b prefill", 1, 32768, 32, 1, 96, None, True,
               SERVING),
              ("dbrx-132b prefill", 1, 32768, 8, 6, 128, None, True,
+              SERVING),
+             ("jamba-v0.1-52b train", 1, 4096, 8, 4, 128, None, True, True),
+             ("jamba-v0.1-52b prefill", 1, 32768, 8, 4, 128, None, True,
               SERVING)]
 # small shapes at the edges of the wrappers' contract: (label, B, S, KV, G,
 # hd, window, causal)
@@ -746,11 +811,21 @@ def check_encode_bucket(torch, fused, strict=True, timed=True):
 
 def _ssd_shape():
     """B, S, H, P, N, chunk of mamba2-130m's SSD core on its path."""
-    from repro_torch.configs import get_config
-    cfg = get_config("mamba2-130m")
     seq, batch = {arch: (s, b) for arch, s, b, _, _ in PATHS}["mamba2-130m"]
-    return (batch, seq, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
-            cfg.ssd_chunk)
+    return (batch, seq, *_ssd_heads("mamba2-130m"))
+
+
+def _ssd_heads(arch):
+    """H, P, N, chunk of `arch`'s SSD core at full width."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk
+
+
+def _ssd_train_shape():
+    """B, S, H, P, N, chunk of the hybrid train check's SSD calls."""
+    arch, seq, batch, _ = HYBRID_TRAIN
+    return (batch, seq, *_ssd_heads(arch))
 
 
 def _ssd_inputs(torch, gen, shape, with_h0):
@@ -850,23 +925,30 @@ def _ssd_held(torch, K, label, x, Q, strict=True):
 
 
 def _ssd_serving_cases():
-    """(label, B, S) of the serving path's calls of the SSD forward:
-    mamba2-130m's prefill (its prefill_32k rows) and the decode check's
+    """(label, B, S, arch) of the serving path's calls of the SSD forward:
+    the prefill of each served model with SSM layers (mamba2-130m,
+    jamba-v0.1-52b; their prefill_32k rows) and its decode check's
     prefill (its decode batch, SERVE_T tokens)."""
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import INPUT_SHAPES
-    run = {r[0]: r for r in SERVE_RUNS}["mamba2-130m"]
-    return [("mamba2-130m prefill", run[1],
-             INPUT_SHAPES["prefill_32k"].seq_len),
-            ("mamba2-130m decode-check prefill", run[3], SERVE_T)]
+    out = []
+    for arch, rows, _, decode_b, *_ in SERVE_RUNS:
+        if get_config(arch).family in ("ssm", "hybrid"):
+            out += [(f"{arch} prefill", rows,
+                     INPUT_SHAPES["prefill_32k"].seq_len, arch),
+                    (f"{arch} decode-check prefill", decode_b, SERVE_T,
+                     arch)]
+    return out
 
 
-def _ssd_forward_case(torch, K, gen, label, B, S):
+def _ssd_forward_case(torch, K, gen, label, B, S, arch):
     """A serving-path call of the SSD forward kernels (h0 None, as
-    `ssm_block`'s prefill makes it) at the path's whole batch: each row of
-    y and h_final against the plain chunked scan on that row alone, in
-    fp32 and in fp64, at `_ssd_held`'s forward tolerance (allclose atol
-    5e-4, rtol 1e-3); then the call timed beside its bound. -> its row."""
-    _, _, H, P, N, chunk = _ssd_shape()
+    `ssm_block`'s prefill makes it) at the path's whole batch, `arch`'s
+    heads: each row of y and h_final against the plain chunked scan on
+    that row alone, in fp32 and in fp64, at `_ssd_held`'s forward
+    tolerance (allclose atol 5e-4, rtol 1e-3); then the call timed
+    beside its bound. -> its row."""
+    H, P, N, chunk = _ssd_heads(arch)
     Q = K.chunk_len(S, chunk)
     x = _ssd_inputs(torch, gen, (B, S, H, P, N, Q), False)
     u, a, Bm, Cm = (x[k] for k in ("u", "a", "Bm", "Cm"))
@@ -918,12 +1000,70 @@ def _ssd_forward_case(torch, K, gen, label, B, S):
             "worst_ratio": {t: r for t, (r, _) in worst.items()}}
 
 
+def _ssd_bound(shape):
+    """{name: (bound ms, bound_by, GFLOP, bytes)} of the forward's and the
+    backward's calls at `shape` (no h0, no dh_final): the products as
+    bf16x3 at the tensor-core peak, or the bytes at the HBM rate."""
+    K = importlib.import_module("repro_torch.kernels.ssd_scan")
+    out = {}
+    for name, flops, nbytes in zip(("ssd_scan", "ssd_scan_bwd"),
+                                   K.ssd_flops(*shape), ssd_bytes(*shape)):
+        ops_ms = 3 * flops / BF16_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(ops_ms, bytes_ms), "operations"
+                     if ops_ms >= bytes_ms else "bytes", flops / 1e9, nbytes)
+    return out
+
+
+def _ssd_times(torch, K, x, Q):
+    """The forward and the backward at a training call (h0 None as
+    `ssm_block` makes it, h_final unused: dh_final None, the states saved
+    for the backward): ({name: kernel ms}, {name: plain ms})."""
+    u, a, Bm, Cm, dy = (x[k] for k in ("u", "a", "Bm", "Cm", "dy"))
+    _, _, hs = K.ssd_scan_fwd(u, a, Bm, Cm, chunk=Q)
+    ms = {"ssd_scan": _cuda_ms(torch, lambda: K.ssd_scan_fwd(
+              u, a, Bm, Cm, chunk=Q), hold_cycles=HOLD_CYCLES),
+          "ssd_scan_bwd": _cuda_ms(torch, lambda: K.ssd_scan_bwd(
+              dy, None, u, a, Bm, Cm, hs, chunk=Q), hold_cycles=HOLD_CYCLES)}
+    leaves = [t.clone().requires_grad_(True) for t in (u, a, Bm, Cm)]
+    plain = {"ssd_scan": _host_ms(torch, lambda: K.ssd_scan_plain(
+        *(t.detach() for t in leaves), chunk=Q))}
+    yp, _ = K.ssd_scan_plain(*leaves, chunk=Q)
+    plain["ssd_scan_bwd"] = _host_ms(torch, lambda: torch.autograd.grad(
+        yp, leaves, dy, retain_graph=True))
+    return ms, plain
+
+
+def _ssd_shape_case(torch, K, gen, label, shape):
+    """One training call's shape: the kernels held against the plain scan
+    and its autograd (`_ssd_held`, h0 None), then timed (`_ssd_times`)
+    beside their bounds. -> {name: its row}."""
+    x = _ssd_inputs(torch, gen, shape, False)
+    err, _ = _ssd_held(torch, K, label, x, shape[5])
+    ms, plain = _ssd_times(torch, K, x, shape[5])
+    del x
+    torch.cuda.empty_cache()
+    rows = {}
+    for name, (bound_ms, by, gflop, nbytes) in _ssd_bound(shape).items():
+        rows[name] = {"label": label, "shape": list(shape), "ms": ms[name],
+                      "plain_ms": plain[name], "bound_ms": bound_ms,
+                      "bound_by": by, "library_ms": None,
+                      "max_abs_err": err["fwd" if name == "ssd_scan"
+                                         else "bwd"]}
+        print(f"{name} {label} ({'x'.join(map(str, shape))}): "
+              f"ms={ms[name]:.4f} plain_ms={plain[name]:.3f} "
+              f"bound_ms={bound_ms:.5f} ({by}: 3 x {gflop:.3f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB; {ms[name] / bound_ms:.1f}x bound)")
+    return rows
+
+
 def check_ssd(torch):
     """The SSD forward and backward kernels against the plain chunked scan
     and its autograd, fp32 and fp64 (`_ssd_held`), at mamba2-130m's shapes
     (h0 zero and random) and at SSD_EDGE_CASES; two launches bit-equal;
     the forward at the serving path's calls, row by row
-    (`_ssd_forward_case`); then the main path's call timed beside its
+    (`_ssd_forward_case`); the hybrid train check's shape held and timed
+    (`_ssd_shape_case`); then the main path's call timed beside its
     bound."""
     K = importlib.import_module("repro_torch.kernels.ssd_scan")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -957,49 +1097,32 @@ def check_ssd(torch):
     torch.cuda.empty_cache()
     serving = [_ssd_forward_case(torch, K, gen, *case)
                for case in _ssd_serving_cases()]
+    # the hybrid train check's calls (Jamba: H 128, N 16), both kernels
+    train = _ssd_shape_case(torch, K, gen, f"{HYBRID_TRAIN[0]} train",
+                            _ssd_train_shape())
 
-    # timing at the main path's call: h0 None, h_final unused (dh_final
-    # None), states saved for the backward
-    x = _ssd_inputs(torch, gen, main, False)
-    u, a, Bm, Cm, dy = (x[k] for k in ("u", "a", "Bm", "Cm", "dy"))
-    _, _, hs = K.ssd_scan_fwd(u, a, Bm, Cm, chunk=Q)
-    fwd_ms = _cuda_ms(torch, lambda: K.ssd_scan_fwd(u, a, Bm, Cm, chunk=Q),
-                      hold_cycles=HOLD_CYCLES)
-    bwd_ms = _cuda_ms(torch, lambda: K.ssd_scan_bwd(dy, None, u, a, Bm, Cm,
-                                                    hs, chunk=Q),
-                      hold_cycles=HOLD_CYCLES)
-    leaves = [t.clone().requires_grad_(True) for t in (u, a, Bm, Cm)]
-    fwd_plain_ms = _host_ms(torch, lambda: K.ssd_scan_plain(
-        *(t.detach() for t in leaves), chunk=Q))
-    yp, _ = K.ssd_scan_plain(*leaves, chunk=Q)
-    bwd_plain_ms = _host_ms(torch, lambda: torch.autograd.grad(
-        yp, leaves, dy, retain_graph=True))
+    # timing at the main path's call
+    ms, plain = _ssd_times(torch, K, _ssd_inputs(torch, gen, main, False), Q)
     elems = B * S * H * P * N
     rows = {}
-    for name, ms, plain_ms, flops, nbytes, old_flops in zip(
-            ("ssd_scan", "ssd_scan_bwd"), (fwd_ms, bwd_ms),
-            (fwd_plain_ms, bwd_plain_ms), K.ssd_flops(B, S, H, P, N, Q),
-            ssd_bytes(B, S, H, P, N, Q), (4 * elems, 11 * elems)):
-        # bf16x3: three bf16 tensor-core terms for every product
-        ops_ms = 3 * flops / BF16_FLOPS * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
+    for (name, (bound_ms, by, gflop, nbytes)), old_flops in zip(
+            _ssd_bound(main).items(), (4 * elems, 11 * elems)):
         # the serial kernels' bound: the recurrence's fp32 FMAs
-        old_bound_ms = max(old_flops / FP32_FLOPS * 1e3, bytes_ms)
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": "operations" if ops_ms >= bytes_ms
-                      else "bytes",
+        old_bound_ms = max(old_flops / FP32_FLOPS * 1e3,
+                           nbytes / HBM_BYTES_PER_S * 1e3)
+        rows[name] = {"ms": ms[name], "plain_ms": plain[name],
+                      "bound_ms": bound_ms, "bound_by": by,
                       "bound_route": "bf16x3 at 989.4 TFLOP/s",
                       "old_bound_ms": old_bound_ms,
                       "max_abs_err": err["fwd" if name == "ssd_scan"
-                                         else "bwd"]}
+                                         else "bwd"],
+                      "train_cases": [train[name]]}
         if name == "ssd_scan":
             rows[name]["serving_cases"] = serving
-        print(f"{name}: ms={ms:.4f} plain_ms={plain_ms:.3f} "
-              f"bound_ms={bound_ms:.5f} (bf16x3: 3 x {flops / 1e9:.3f} "
-              f"GFLOP at 989.4 TFLOP/s -> {ops_ms:.5f} ms, "
-              f"{nbytes / 1e6:.1f} MB -> {bytes_ms:.5f} ms; "
-              f"{ms / bound_ms:.1f}x bound); old fp32 bound "
+        print(f"{name}: ms={ms[name]:.4f} plain_ms={plain[name]:.3f} "
+              f"bound_ms={bound_ms:.5f} ({by}; bf16x3: 3 x {gflop:.3f} "
+              f"GFLOP at 989.4 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s;"
+              f" {ms[name] / bound_ms:.1f}x bound); old fp32 bound "
               f"{old_bound_ms:.5f} ms ({old_flops / 1e9:.2f} GFLOP at 67 "
               f"TFLOP/s)")
     return rows
@@ -2167,35 +2290,40 @@ def delta_path(torch):
     return launches, fold_crc
 
 
-def moe_delta_path(torch):
-    """Phase 7b, one path (counts set to 0 before it, read after it): the
-    CLI with `--delta` on reduced dbrx-132b (MOE_DELTA_ARGS: every layer
-    MoE, seq 2048, the fp32 swa_flash kernels; RUN_ARGS' two failures,
-    each restore byte-exact), the router's touched-expert mask consumed
-    by the dirty provider at each flight: each call's touched experts
-    printed, every byte ruled dirty (the expert leaves are stacked over
-    the layers) and so no bucket ruled clean."""
+def moe_delta_path(torch, path, args, must):
+    """Phase 7b and 7c, one path each (counts set to 0 before it, read
+    after it): the CLI with `--delta` on a reduced model with experts
+    (MOE_RUNS: dbrx-132b, every layer MoE, the fp32 swa_flash kernels;
+    jamba-v0.1-52b, an SSM layer with an MLP, then attention with the
+    MoE, the SSD and the fp32 swa_flash kernels; seq 2048, RUN_ARGS' two
+    failures, each restore byte-exact), `must`'s kernels launched, the
+    router's touched-expert mask consumed by the dirty provider at each
+    flight: each call's touched experts printed, a call for every flight
+    the engines began, every byte ruled dirty (the expert leaves are
+    stacked over the layers or periods) and so no bucket ruled clean."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    gc.collect()
     reset_launch_counts()
     t0 = time.perf_counter()
     ckpt = tempfile.mkdtemp(prefix="reft-chip-moe-delta-")
     try:
-        rep = _train([*MOE_DELTA_ARGS, "--ckpt-dir", ckpt])
+        rep = _train([*args, "--ckpt-dir", ckpt])
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     launches = launch_counts()
-    want = _want_tiers(rep, MOE_DELTA)
+    want = _want_tiers(rep, path)
     if _tiers(rep) != want:
-        raise AssertionError(f"{MOE_DELTA}: recoveries {rep['recoveries']}:"
+        raise AssertionError(f"{path}: recoveries {rep['recoveries']}:"
                              f" want {want}, all byte-exact")
-    for name in ("encode_bucket", "swa_flash", "swa_flash_bwd"):
+    for name in must:
         if launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the "
-                                 f"{MOE_DELTA} path")
+                                 f"{path} path")
     calls = rep["expert_flights"]
     clean = [e.get("provider_clean_buckets", 0) for e in rep["engine_stats"]]
     st = rep["stats"]
-    print(f"{MOE_DELTA}: {len(rep['step_seconds'])} steps, median step "
+    flights = st.get("delta_flights", 0) + st.get("keyframe_flights", 0)
+    print(f"{path}: {len(rep['step_seconds'])} steps, median step "
           f"{statistics.median(rep['step_seconds']):.4f} s, wall "
           f"{time.perf_counter() - t0:.3f} s; delta_flights "
           f"{st.get('delta_flights')} keyframes {st.get('keyframe_flights')}"
@@ -2207,11 +2335,11 @@ def moe_delta_path(torch):
           f"ruled clean, by member: {clean}; launches "
           f"{json.dumps(launches)}; recoveries "
           f"{json.dumps(rep['recoveries'])}")
-    if not calls or not any(c["touched"] for c in calls) \
+    if len(calls) < flights or not any(c["touched"] for c in calls) \
             or any(c["dirty_bytes"] != c["total_bytes"] for c in calls) \
             or any(clean):
-        raise AssertionError(f"{MOE_DELTA}: the provider's calls {calls}, "
-                             f"clean buckets {clean}")
+        raise AssertionError(f"{path}: the provider's calls {calls} "
+                             f"({flights} flights), clean buckets {clean}")
     return launches
 
 
@@ -2316,12 +2444,21 @@ def _device_profile(torch, fn, n=2):
     return (total or None), sorted(kinds.items(), key=lambda r: -r[1])[:5]
 
 
-def _decode_leaves(lg, ent):
-    """(name, what decode wrote, by rows): the last logits (each request's
-    row) and each cache leaf, k/v in their first SERVE_T slots."""
-    return (("logits", lg, True),
-            *((n, ent[n][:, :, :SERVE_T] if n in ("k", "v") else ent[n],
-               False) for n in ent))
+def _decode_leaves(lg, entries):
+    """(name, key, what decode wrote, by rows): the last logits (each
+    request's row; key None) and each position's cache leaves (key (pos,
+    leaf); named "leaf", or "pos leaf" when the period has more than one
+    position), k/v in their first SERVE_T slots."""
+    many = len(entries) > 1
+    return (("logits", None, lg, True),
+            *((f"{pos} {n}" if many else n, (pos, n),
+               ent[n][:, :, :SERVE_T] if n in ("k", "v") else ent[n], False)
+              for pos, ent in sorted(entries.items()) for n in ent))
+
+
+def _moe_layers(cfg):
+    """How many of `cfg`'s layers route their tokens to experts."""
+    return sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
 
 
 def _routes(fn):
@@ -2344,8 +2481,8 @@ def _routes(fn):
 
 def _route_sets(torch, calls, B, L):
     """(L, B, SERVE_T, k) sorted expert ids from a prefill's router calls
-    (a (B*T, k) call a layer) or SERVE_T decode steps' (a (B, k) call a
-    step and layer)."""
+    (a (B*T, k) call a MoE layer, L of them) or SERVE_T decode steps' (a
+    (B, k) call a step and MoE layer)."""
     if len(calls) == L:
         ids = torch.stack([c.view(B, SERVE_T, -1) for c in calls])
     else:
@@ -2386,11 +2523,11 @@ def _decode_check(torch, arch, cfg, params, toks, fp32_b, Smax):
     cache = M.init_cache(cfg32, fp32_b, Smax, dev)
     for t in range(SERVE_T):
         lg, cache = M.decode_step(cfg32, p32, cache, toks[:fp32_b, t:t + 1])
-    ent = cache["entries"]["pos0"]
+    ent = cache["entries"]
     held = []
-    for name, got, rows in _decode_leaves(lg, ent):
-        want = (l32 if name == "logits" else c32["pos0"][name])[
-            (slice(fp32_b),) if name == "logits" else
+    for name, key, got, rows in _decode_leaves(lg, ent):
+        want = (l32 if key is None else c32[key[0]][key[1]])[
+            (slice(fp32_b),) if key is None else
             (slice(None), slice(fp32_b))]
         e = _rel(got, want, rows)
         ok = math.isfinite(e) and e <= tol32
@@ -2419,7 +2556,7 @@ def _decode_check(torch, arch, cfg, params, toks, fp32_b, Smax):
         # the routes' share alike against the bf16 prefill's own share
         # alike with the fp32 one; the values on the requests whose
         # routes all agree
-        L = cfg.num_layers
+        L = _moe_layers(cfg)
         p16 = _route_sets(torch, pre, decode_b, L)
         agree, keep = _routes_alike(torch, p16, _route_sets(
             torch, dec, decode_b, L))
@@ -2435,11 +2572,11 @@ def _decode_check(torch, arch, cfg, params, toks, fp32_b, Smax):
               f"and the fp32 prefills: {e / y if y else float(e > 0):.3f} of "
               f"the bf16 spread (bound {DECODE_BF16_K}); "
               f"{int(keep.sum())} of {decode_b} requests alike throughout")
-    ent = cache["entries"]["pos0"]
-    for name, got, rows in _decode_leaves(lg, ent):
-        pre_t, yard = ((l16, l32) if name == "logits"
-                       else (c16["pos0"][name], c32["pos0"][name]))
-        at = (keep,) if name == "logits" else (slice(None), keep)
+    ent = cache["entries"]
+    for name, key, got, rows in _decode_leaves(lg, ent):
+        pre_t, yard = ((l16, l32) if key is None
+                       else (c16[key[0]][key[1]], c32[key[0]][key[1]]))
+        at = (keep,) if key is None else (slice(None), keep)
         got, pre_t, yard = got[at], pre_t[at], yard[at]
         e, y = _rel(got, pre_t, rows), _rel(pre_t, yard, rows)
         ok = math.isfinite(e) and e <= DECODE_BF16_K * y
@@ -2453,6 +2590,15 @@ def _decode_check(torch, arch, cfg, params, toks, fp32_b, Smax):
         raise AssertionError(f"{arch}: decode departs from logits_fn: "
                              f"{held}, index {int(cache['index'])}")
     return held, cache, lg, agree
+
+
+def _check_config(cfg, check_layers):
+    """The decode check's own model: `check_layers` layers of `cfg`'s
+    widths (CHECK_OVERRIDES' pattern), drop-free."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, num_layers=check_layers, capacity_factor=float(cfg.num_experts),
+        **CHECK_OVERRIDES.get(cfg.name, {}))
 
 
 def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b,
@@ -2518,12 +2664,13 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b,
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_peak = torch.cuda.max_memory_allocated() - other
-    shapes = {n: (tuple(t.shape), t.dtype)
-              for n, t in caches["pos0"].items()}
-    want = {n: (tuple(t.shape), t.dtype) for n, t in
-            M.init_cache(cfg, prefill_b, S, "meta")["entries"]["pos0"]
-            .items()}
-    prefill_cache = sum(nbytes(t) for t in caches["pos0"].values())
+    shapes = {(pos, n): (tuple(t.shape), t.dtype)
+              for pos, ent in caches.items() for n, t in ent.items()}
+    want = {(pos, n): (tuple(t.shape), t.dtype) for pos, ent in
+            M.init_cache(cfg, prefill_b, S, "meta")["entries"].items()
+            for n, t in ent.items()}
+    prefill_cache = sum(nbytes(t) for ent in caches.values()
+                        for t in ent.values())
     if shapes != want or tuple(logits.shape) != (prefill_b, 1, V) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch} prefill: caches {shapes}, want "
@@ -2544,7 +2691,7 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b,
             torch, arch, cfg, params, tokens(decode_b, SERVE_T), fp32_b,
             Smax)
         tok = lg.argmax(-1).to(torch.int32)
-    ent = cache["entries"]["pos0"]
+    entries = cache["entries"]
 
     # 3. decode steps at the full Smax (each scores every slot)
     torch.cuda.synchronize()
@@ -2565,15 +2712,18 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b,
              f"step's wall); largest: "
              + "; ".join(f"{k} {t:.3f} ms" for k, t in top)))
 
-    # 4. the step's bound
-    cache_bytes = sum(nbytes(t) for t in ent.values())
+    # 4. the step's bound: what it writes, by position: one k/v slot a
+    # layer, or the whole SSM state
+    cache_bytes = sum(nbytes(t) for ent in entries.values()
+                      for t in ent.values())
     el = params["embed"].element_size()
     read = weight_bytes + cache_bytes
     if "lm_head" in params:          # the table itself only in B rows
         read -= nbytes(params["embed"]) - decode_b * cfg.d_model * el
-    written = decode_b * V * el + (
-        cache_bytes if "h" in ent else
-        2 * cfg.num_layers * decode_b * cfg.num_kv_heads * cfg.head_dim * el)
+    written = decode_b * V * el + sum(
+        sum(nbytes(t) for t in ent.values()) if "h" in ent else
+        2 * ent["k"].shape[0] * decode_b * cfg.num_kv_heads * cfg.head_dim
+        * el for ent in entries.values())
     bound_ms = (read + written) / HBM_BYTES_PER_S * 1e3
     run = {"arch": arch, "layers": cfg.num_layers,
            "check_layers": check_layers or cfg.num_layers,
@@ -2601,14 +2751,13 @@ def _serve_run(torch, arch, prefill_b, decode_shape, decode_b, fp32_b,
           f"{bound_ms:.3f} ms ({read + written} B at 3.35 TB/s), "
           f"{step_ms / bound_ms:.2f}x bound; peak device memory "
           f"{peak / 1e9:.3f} GB")
-    del params, cache, ent, lg, tok
+    del params, cache, entries, lg, tok
     torch.cuda.empty_cache()
 
     # 5. a cut model's decode check: its own model of check_layers layers
     # of the same widths, drop-free
     if check_layers:
-        ccfg = dataclasses.replace(cfg, num_layers=check_layers,
-                                   capacity_factor=float(cfg.num_experts))
+        ccfg = _check_config(cfg, check_layers)
         cparams = M.init_params(ccfg, torch.Generator(dev).manual_seed(0),
                                 dev)
         held, cache, lg, agree = _decode_check(
@@ -2646,15 +2795,18 @@ def serving_path(torch):
     runs = [_serve_run(torch, *r) for r in SERVE_RUNS]
     launches = launch_counts()
     # per layer: the warm-up and the prefill (swa_flash: S >= the flash
-    # threshold; ssd_scan: every length), and ssd_scan in the check's
-    # fp32 and bf16 prefills of SERVE_T tokens
+    # threshold; ssd_scan: every length), and per SSM layer of the decode
+    # check's model ssd_scan in its fp32 and bf16 prefills of SERVE_T
+    # tokens (its attention below the threshold: none)
+    from repro_torch.configs.base import SSM
     want = dict.fromkeys(launches, 0)
-    for arch, *_, layers, _ in SERVE_RUNS:
+    for arch, *_, layers, check_layers in SERVE_RUNS:
         cfg = _path_config(arch, layers)
-        if cfg.family == "ssm":
-            want["ssd_scan"] += 4 * cfg.num_layers
-        else:
-            want["swa_flash"] += 2 * cfg.num_layers
+        ccfg = _check_config(cfg, check_layers) if check_layers else cfg
+        ssm = sum(cfg.layer_kind(i) == SSM for i in range(cfg.num_layers))
+        want["ssd_scan"] += 2 * ssm + 2 * sum(
+            ccfg.layer_kind(i) == SSM for i in range(ccfg.num_layers))
+        want["swa_flash"] += 2 * (cfg.num_layers - ssm)
     print(f"{SERVING} launches: {json.dumps(launches)}")
     if launches != want:
         raise AssertionError(f"{SERVING}: launches {launches}, want {want}")
@@ -2806,6 +2958,103 @@ def _dtensor_run(torch, mesh, arch, seq, batch, layers):
     del params, grads, p_dt, grads_d
     torch.cuda.empty_cache()
     return launches
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Within the block the model's layers call the plain versions of the
+    attention and SSD cores (`swa_flash_plain`, `ssd_scan_plain`) where
+    they call the kernels' entry points: a plain forward on the card for
+    the kernels to be held against."""
+    MA = importlib.import_module("repro_torch.models.attention")
+    MS = importlib.import_module("repro_torch.models.ssm")
+    KA = importlib.import_module("repro_torch.kernels.swa_attention")
+    KS = importlib.import_module("repro_torch.kernels.ssd_scan")
+    saved = MA.swa_flash, MS.ssd_scan
+    MA.swa_flash = lambda q, k, v, *, window, causal=True: \
+        KA.swa_flash_plain(q, k, v, window=KA._window(window), causal=causal)
+    MS.ssd_scan = lambda u, a, Bm, Cm, h0=None, *, chunk: \
+        KS.ssd_scan_plain(u, a, Bm, Cm, h0, chunk=chunk)
+    try:
+        yield
+    finally:
+        MA.swa_flash, MS.ssd_scan = saved
+
+
+def hybrid_train_check(torch):
+    """Phase 9(e), one path (counts set to 0 before it, read after it):
+    HYBRID_TRAIN, one period of Jamba at full width (8 layers: 7 SSM
+    layers, attention at position 4, the MoE at 1, 3, 5, 7), bf16 weights
+    from a seed, one forward and backward with the kernels and no
+    optimizer: ssd_scan, ssd_scan_bwd, swa_flash and swa_flash_bwd
+    launched, every gradient leaf finite with a nonzero norm; the loss
+    held against the same forward through the plain versions
+    (`_plain_kernels`) within HYBRID_LOSS_TOL of it; the peak printed.
+    -> (launches, record)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.treebytes import (leaf_arrays, tree_flatten_with_path,
+                                            tree_unflatten)
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+    arch, seq, batch, layers = HYBRID_TRAIN
+    dev = torch.device("cuda")
+    cfg = _path_config(arch, layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in leaf_arrays(params))
+    b = make_batch(cfg, InputShape("hybrid", seq, batch, "train"), seed=0,
+                   device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    leaves = [t.requires_grad_(True) for t in leaf_arrays(params)]
+    loss, out = M.forward(cfg, tree_unflatten(params, leaves), b)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                         for g in grads]).tolist()
+    paths = [p for p, _ in tree_flatten_with_path(params)]
+    bad = [p for p, n in zip(paths, norms) if not (math.isfinite(n) and n > 0)]
+    del grads, leaves
+    for t in leaf_arrays(params):
+        t.requires_grad_(False)
+    torch.cuda.empty_cache()
+    with torch.no_grad(), _plain_kernels():
+        plain_loss, plain_out = M.forward(cfg, params, b)
+    torch.cuda.synchronize()
+    d = abs(loss.item() - plain_loss.item())
+    bound = HYBRID_LOSS_TOL * abs(plain_loss.item())
+    rec = {"arch": arch, "layers": cfg.num_layers, "seq": seq,
+           "batch": batch, "params": n_params, "loss": loss.item(),
+           "aux": out["aux"].item(), "plain_loss": plain_loss.item(),
+           "plain_aux": plain_out["aux"].item(), "loss_diff": d,
+           "loss_bound": bound, "fwd_bwd_s": seconds, "peak_bytes": peak,
+           "grad_leaves": len(norms), "grad_leaves_bad": bad,
+           "launches": launches}
+    print(f"{HYBRID_TRAIN_PATH}: {arch}, {cfg.num_layers} layers at full "
+          f"width ({n_params} params, bf16), {batch}x{seq}: loss "
+          f"{loss.item()!r} (aux {out['aux'].item():.6f}), plain versions "
+          f"{plain_loss.item()!r} (aux {plain_out['aux'].item():.6f}); "
+          f"|diff| {d:.3e}, bound {bound:.3e} ({HYBRID_LOSS_TOL:g} of the "
+          f"loss): {d / bound:.3f} of it; {len(norms) - len(bad)} of "
+          f"{len(norms)} gradient leaves finite with a nonzero norm; "
+          f"forward and backward {seconds:.3f} s; peak device memory "
+          f"{peak / 1e9:.3f} GB; launches {json.dumps(launches)}")
+    del params, b, loss, out, plain_loss, plain_out
+    torch.cuda.empty_cache()
+    for name in ("ssd_scan", "ssd_scan_bwd", "swa_flash", "swa_flash_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"{HYBRID_TRAIN_PATH}")
+    if bad or not d <= bound:
+        raise AssertionError(f"{HYBRID_TRAIN_PATH}: {rec}")
+    return launches, rec
 
 
 def probe_allowance(need, total_bytes: int, n: int) -> int:
@@ -3020,8 +3269,9 @@ def main() -> int:
     phase("7 delta flights and pipeline stages at full width")
     by_path[DELTA], delta_fold_crc = delta_path(torch)
     torch.cuda.empty_cache()
-    by_path[MOE_DELTA] = moe_delta_path(torch)
-    torch.cuda.empty_cache()
+    for path, args, must in MOE_RUNS:
+        by_path[path] = moe_delta_path(torch, path, args, must)
+        torch.cuda.empty_cache()
     by_path[STAGES] = stage_path(torch)
     torch.cuda.empty_cache()
     phase("8 serving at full width")
@@ -3031,6 +3281,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase("9 distribution and the dry-run")
         by_path[DIST], dist_rec = dist_path(torch, serving, dry_started)
+        by_path[HYBRID_TRAIN_PATH], dist_rec["hybrid_train"] = \
+            hybrid_train_check(torch)
     finally:
         if dry_started[0].poll() is None:
             dry_started[0].kill()

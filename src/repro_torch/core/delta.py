@@ -81,10 +81,11 @@ def expert_dirty_ranges(spec, touched: Sequence[bool],
     expert weight, not under `blocks`) contribute only their touched
     experts' slices; every other leaf (router, norms, embeddings,
     scalars — all updated every step) is whole-leaf dirty. A leaf under
-    `blocks` carries the layer stack first, (L, E, ...), so it is always
-    whole-leaf dirty, whatever its shape: the reference takes its leading
-    dim for the experts' when L == E, and rules an untouched expert's
-    slices of layer 0 clean while every layer's changed. (AdamW's decay
+    `blocks` carries the stack of periods first, (n_periods, E, ...), so
+    it is always whole-leaf dirty, whatever its shape: the reference
+    takes its leading dim for the experts' when n_periods == E, and rules
+    an untouched expert's slices of period 0 clean while every period's
+    changed. (AdamW's decay
     and momentum change every expert's bytes every step anyway.)"""
     E = len(touched)
     out: List[Range] = []

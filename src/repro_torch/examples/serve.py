@@ -3,11 +3,14 @@
 The twin of `examples/serve.py`: the same reduced gemma3-4b (local and
 global layers interleaved), a batch of 4 synthetic requests, a 16-token
 prompt consumed through `decode_step` (teacher-forced prefill), then 24
-greedy tokens, a 64-slot cache.  Weights and prompts come from seeded
-`torch.Generator`s; everything runs under `torch.inference_mode()`.
+greedy tokens, a 64-slot cache.  `--arch` serves another registered
+model, reduced the same way (jamba-v0.1-52b: an SSM layer, then an
+attention layer with the MoE, its cache `pos0` conv/h and `pos1` k/v).
+Weights and prompts come from seeded `torch.Generator`s; everything runs
+under `torch.inference_mode()`.
 
     python -m repro_torch.examples.serve                 # on the card
-    python -m repro_torch.examples.serve --device cpu
+    python -m repro_torch.examples.serve --device cpu [--arch jamba-v0.1-52b]
 
 Runs on CUDA unless `--device cpu` asks for the CPU; with no CUDA device
 and no `--device cpu` it raises.
@@ -28,8 +31,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.examples.serve")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    device = resolve_device(ap.parse_args(argv).device)
-    cfg = get_config("gemma3-4b").reduced()      # SWA + global interleave
+    ap.add_argument("--arch", default="gemma3-4b",
+                    help="the registered model to serve, reduced "
+                         "(default gemma3-4b: SWA + global interleave)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch).reduced()
     params = M.init_params(cfg, torch.Generator(device).manual_seed(0),
                            device)
     B, prompt_len, gen_len, max_seq = 4, 16, 24, 64

@@ -475,9 +475,9 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool,
 
 
 def extrapolation_period(cfg) -> int:
-    """Smallest layer count that tiles the full model exactly (the
-    port's stacks have period 1; the local:global interleave)."""
-    period = 1
+    """Smallest layer count that tiles the full model exactly (hybrid
+    period x local:global interleave), as the reference's."""
+    period, _ = M._stack_period(cfg)
     if cfg.global_every:
         period = math.lcm(period, cfg.global_every)
     return period

@@ -5,9 +5,10 @@ config variant and report its roofline terms (the port's counterpart of
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --exp starcoder2_band
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --list
 
-Experiments on a family the port lacks (the hybrid family: jamba's)
-print `[not ported]` and are skipped; the MoE ones (kimi-k2, dbrx: the
-capacity padding, `moe_ep`) trace at full width.
+Every experiment traces at full width: the hybrid ones (jamba's: the
+capacity padding, `moe_ep`, the SSD chunk), the MoE ones (kimi-k2, dbrx)
+and the dense ones. An experiment on a family the port lacks would print
+`[not ported]` and be skipped.
 """
 import argparse
 import dataclasses

@@ -172,6 +172,7 @@ def run(argv=None) -> dict:
     from repro_torch.core.treebytes import state_crc
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.kernels import launch_counts
+    from repro_torch.models.model import _stack_period
     from repro_torch.supervise.inject import parse_scenario
     from repro_torch.train.steps import (init_train_state, make_train_step,
                                          state_to)
@@ -182,6 +183,10 @@ def run(argv=None) -> dict:
     if args.layers is not None:
         if not 1 <= args.layers <= cfg.num_layers:
             ap.error(f"--layers must be in 1..{cfg.num_layers}")
+        period = _stack_period(cfg)[0]
+        if args.layers % period:
+            ap.error(f"--layers must be a multiple of {cfg.name}'s period "
+                     f"of {period} layers")
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     shape = InputShape("cli", args.seq, args.batch, "train")
     injections = {}

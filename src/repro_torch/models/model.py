@@ -1,14 +1,17 @@
-"""Model assembly: init / forward / prefill / decode for the dense, MoE
-and SSM families, with the VLM (patch embeddings before the tokens) and
-audio (frame embeddings, no tokens) inputs.
+"""Model assembly: init / forward / prefill / decode for the dense, MoE,
+SSM and hybrid families, with the VLM (patch embeddings before the
+tokens) and audio (frame embeddings, no tokens) inputs.
 
 The counterpart of `repro/models/model.py`.  Parameters keep the
-reference's stacked layout — `params["blocks"]["pos0"][...]` leaves of
-shape (num_layers, ...) — so the flat byte streams of the two packages
-line up leaf for leaf; the decode cache keeps it too
-(`cache["entries"]["pos0"]["k"]` of shape (num_layers, B, S, KV, hd)).
-The layer loop unbinds the stacks once per call; `cfg.remat` maps to
-`torch.utils.checkpoint` per layer.  Inside a `dist.use_mesh` context,
+reference's period-stacked layout: a period of K layers
+(`_stack_period`: K = 1 but for the hybrid family, whose period holds
+attention, SSM and MoE layers), `params["blocks"]["pos0"]` ..
+`["pos{K-1}"]` leaves of shape (n_periods, ...), so the flat byte streams
+of the two packages line up leaf for leaf; the decode cache keeps it too
+(`cache["entries"]["pos{i}"]["k"]` of shape (n_periods, B, S, KV, hd)).
+The layer loop walks the periods, then the positions in each, on stacks
+unbound once per call; `cfg.remat` maps to `torch.utils.checkpoint` per
+layer.  Inside a `dist.use_mesh` context,
 on DTensor params, the two `shard` calls of the reference (each layer's
 input, the logits) redistribute the activations; elsewhere they are the
 identity.  Serving (`logits_fn`, `init_cache`,
@@ -16,6 +19,8 @@ identity.  Serving (`logits_fn`, `init_cache`,
 step's k/v (or SSM state) into the cache in place.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -33,26 +38,36 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.ssm import init_ssm, ssm_block, ssm_decode
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Ported: the dense family, with full or sliding-window attention
-    (homogeneous as starcoder2, or local and global layers interleaved as
-    gemma3), the MoE family (dbrx, kimi-k2: every layer's FFN a
-    mixture of experts), the pure SSM family (Mamba2), and dense stacks
-    fed by patch embeddings (VLM: phi-3-vision) or frame embeddings
-    (audio: hubert, an encoder). The hybrid family raises, naming the
-    ROADMAP item it waits for."""
-    if cfg.family == "hybrid":
-        why = ("the hybrid family (Jamba: attention, SSM and MoE layers "
-               "in a period) waits for ROADMAP 'The hybrid family', the "
-               "next slice")
-    elif cfg.family in ("dense", "moe", "ssm", "vlm", "audio"):
-        return
-    else:
-        why = f"family {cfg.family!r} is unknown"
-    raise NotImplementedError(
-        f"{cfg.name}: ported are the dense (full or sliding-window "
-        f"attention), MoE, SSM (Mamba2), VLM and audio families; {why}")
+    """Every family of the reference is ported: the dense family, with
+    full or sliding-window attention (homogeneous as starcoder2, or local
+    and global layers interleaved as gemma3), the MoE family (dbrx,
+    kimi-k2: every layer's FFN a mixture of experts), the pure SSM family
+    (Mamba2), the hybrid family (Jamba: attention, SSM and MoE layers in
+    a period), and dense stacks fed by patch embeddings (VLM:
+    phi-3-vision) or frame embeddings (audio: hubert, an encoder). A
+    family outside these raises."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: ported are the dense (full or sliding-window "
+            f"attention), MoE, SSM (Mamba2), hybrid (Jamba), VLM and audio "
+            f"families; family {cfg.family!r} is unknown")
+
+
+def _stack_period(cfg: ModelConfig):
+    """(period, n_periods), the reference's: the hybrid family stacks by
+    its attention period, taken to a multiple of the MoE stride so that
+    every period repeats one pattern; every other family has period 1."""
+    if cfg.family == "hybrid" and cfg.attn_period:
+        period = cfg.attn_period
+        if cfg.num_experts:
+            period = math.lcm(period, cfg.moe_every)
+        assert cfg.num_layers % period == 0, (cfg.name, period)
+        return period, cfg.num_layers // period
+    return 1, cfg.num_layers
 
 
 def window_array(cfg: ModelConfig):
@@ -71,43 +86,56 @@ def _band(cfg: ModelConfig, idx: int):
 
 
 def _init_stack(cfg: ModelConfig, gen, device):
-    """`_init_layer` for each layer in turn, its leaves written into
-    (num_layers, ...) stacks allocated at the first layer: one layer's
-    tree at a time beside the stacks (stacking whole per-layer trees
-    would hold the model twice)."""
-    first = _init_layer(cfg, gen, device)
-    stacks = [t.new_empty((cfg.num_layers, *t.shape))
-              for t in leaf_arrays(first)]
-    out = tree_unflatten(first, stacks)
-    for i in range(cfg.num_layers):
-        layer = first if i == 0 else _init_layer(cfg, gen, device)
-        for s, t in zip(stacks, leaf_arrays(layer)):
-            s[i] = t
-        first = layer = None
+    """{"pos{i}": position i's leaves stacked over the periods}. The
+    layers are made in their order (period by period, each period's
+    positions in turn), each written into its position's (n_periods, ...)
+    stacks, allocated at the first period: one layer's tree at a time
+    beside the stacks (stacking whole per-layer trees would hold the
+    model twice)."""
+    K, n = _stack_period(cfg)
+    out, stacks = {}, []
+    for period in range(n):
+        for i in range(K):
+            layer = _init_layer(cfg, gen, device, i)
+            if period == 0:
+                stacks.append([t.new_empty((n, *t.shape))
+                               for t in leaf_arrays(layer)])
+                out[f"pos{i}"] = tree_unflatten(layer, stacks[i])
+            for s, t in zip(stacks[i], leaf_arrays(layer)):
+                s[period] = t
+            layer = None
     return out
 
 
 def _unstack(tree, n: int):
-    """The inverse of `_stack`: n per-layer trees (views, one unbind each)."""
+    """The inverse of the stacking: n per-period trees (views, one unbind
+    each)."""
     cols = [leaf.unbind(0) for leaf in leaf_arrays(tree)]
     return [tree_unflatten(tree, [c[i] for c in cols]) for i in range(n)]
 
 
-def _init_layer(cfg: ModelConfig, gen, device):
-    """One layer's params. Stacks have period 1 (no hybrid yet), so every
-    layer is of the kind at position 0, and its FFN a mixture of experts
-    when position 0's is (the reference passes the position in the
-    period)."""
+def _periods(cfg: ModelConfig, stacked):
+    """{"pos{i}": (n_periods, ...) leaves} -> for each period, its K
+    layers' trees in position order: the layers in their global order."""
+    K, n = _stack_period(cfg)
+    cols = [_unstack(stacked[f"pos{i}"], n) for i in range(K)]
+    return [[col[p] for col in cols] for p in range(n)]
+
+
+def _init_layer(cfg: ModelConfig, gen, device, idx: int):
+    """One layer's params at position `idx` of the period, which decides
+    its kind (attention or SSM) and whether its FFN is a mixture of
+    experts, as the reference's."""
     pd = pdtype_of(cfg)
     D = cfg.d_model
     p = {"ln1": init_rms(D, pd, device)}
-    if cfg.layer_kind(0) == ATTN:
+    if cfg.layer_kind(idx) == ATTN:
         p["mix"] = init_attn(gen, cfg, device)
     else:
         p["mix"] = init_ssm(gen, cfg, device)
     if cfg.d_ff:
         p["ln2"] = init_rms(D, pd, device)
-        p["ffn"] = (init_moe(gen, cfg, device) if cfg.layer_is_moe(0)
+        p["ffn"] = (init_moe(gen, cfg, device) if cfg.layer_is_moe(idx)
                     else init_mlp(gen, cfg, device))
     return p
 
@@ -124,16 +152,16 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device):
         params["embed"] = dense_init(gen, (V, D), pd, device, scale=0.02)
     if not cfg.embed_inputs or cfg.num_patches:
         params["proj_in"] = dense_init(gen, (D, D), pd, device)
-    params["blocks"] = {"pos0": _init_stack(cfg, gen, device)}
+    params["blocks"] = _init_stack(cfg, gen, device)
     params["final_norm"] = init_rms(D, pd, device)
     if cfg.is_encoder or not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (D, V), pd, device)
     return params
 
 
-def _ffn(cfg, p, h):
+def _ffn(cfg, p, idx, h):
     """-> (h + the FFN's output, the router's aux loss: None but on a MoE
-    layer)."""
+    layer). `idx`: the layer's position in the period."""
     # d_ff == 0 (Mamba2): no FFN; the reference adds zeros
     if not cfg.d_ff:
         return h, None
@@ -143,55 +171,60 @@ def _ffn(cfg, p, h):
     # through the flattened (B*S) rows; GSPMD needs no hint
     h = shard(h, P(("pod", "data"), None, None))
     h_in = rms_norm(h, p["ln2"])
-    if cfg.layer_is_moe(0):
+    if cfg.layer_is_moe(idx):
         out, aux = moe_ffn(p["ffn"], cfg, h_in)
         return h + out, aux
     return h + mlp(p["ffn"], h_in), None
 
 
-def _layer(cfg, p, h, positions, window, band):
-    """One layer on the full sequence. -> (h, aux (None but on a MoE
-    layer), cache entry): the layer's (k, v), or its SSM (conv_state,
-    h_final)."""
+def _layer(cfg, p, idx, h, positions, window, band):
+    """The layer at position `idx` of the period, on the full sequence.
+    -> (h, aux (None but on a MoE layer), cache entry): the layer's
+    (k, v), or its SSM (conv_state, h_final)."""
     h = shard(h, P(("pod", "data"), None, None))
-    if cfg.layer_kind(0) == ATTN:
+    if cfg.layer_kind(idx) == ATTN:
         a, entry = attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
                              window=window, positions=positions, band=band)
     else:
         a, entry = ssm_block(p["mix"], cfg, rms_norm(h, p["ln1"]),
                              chunk=cfg.ssd_chunk)
-    return (*_ffn(cfg, p, h + a), entry)
+    return (*_ffn(cfg, p, idx, h + a), entry)
 
 
-def _cache_names(cfg):
-    return ("k", "v") if cfg.layer_kind(0) == ATTN else ("conv", "h")
+def _cache_names(cfg, idx):
+    return ("k", "v") if cfg.layer_kind(idx) == ATTN else ("conv", "h")
 
 
 def _run_blocks(cfg, params, h, *, collect_cache, remat):
-    """The layer stack on the full sequence. -> (h, aux, caches): aux the
-    sum of the MoE layers' aux losses (None without any); with
-    `collect_cache`, {"pos0": {name: (num_layers, ...)}}, each layer's
-    entry written into a stack allocated at the first layer (so the
+    """The layer stack on the full sequence, period by period and each
+    period's positions in turn: the global layer index picks the window
+    and the band, the position the kind. -> (h, aux, caches): aux the sum
+    of the MoE layers' aux losses (None without any); with
+    `collect_cache`, {"pos{i}": {name: (n_periods, ...)}}, each layer's
+    entry written into a stack allocated at the first period (so the
     stacks never sit beside a second copy), else {}."""
+    K, n = _stack_period(cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     windows = window_array(cfg)
-    stacks, aux = {}, None
-    for i, p in enumerate(_unstack(params["blocks"]["pos0"],
-                                   cfg.num_layers)):
-        args = (cfg, p, h, positions, windows[i], _band(cfg, i))
-        if remat:
-            h, a, entry = checkpoint(_layer, *args, use_reentrant=False)
-        else:
-            h, a, entry = _layer(*args)
-        if a is not None:
-            aux = a if aux is None else aux + a
-        if not collect_cache:
-            continue
-        for name, t in zip(_cache_names(cfg), entry):
-            if i == 0:
-                stacks[name] = new_stack(t, cfg.num_layers)
-            stacks[name][i] = t
-    return h, aux, ({"pos0": stacks} if collect_cache else {})
+    stacks, aux = {f"pos{i}": {} for i in range(K)}, None
+    for period, layers in enumerate(_periods(cfg, params["blocks"])):
+        for i, p in enumerate(layers):
+            idx = period * K + i
+            args = (cfg, p, i, h, positions, windows[idx], _band(cfg, idx))
+            if remat:
+                h, a, entry = checkpoint(_layer, *args, use_reentrant=False)
+            else:
+                h, a, entry = _layer(*args)
+            if a is not None:
+                aux = a if aux is None else aux + a
+            if not collect_cache:
+                continue
+            st = stacks[f"pos{i}"]
+            for name, t in zip(_cache_names(cfg, i), entry):
+                if period == 0:
+                    st[name] = new_stack(t, n)
+                st[name][period] = t
+    return h, aux, (stacks if collect_cache else {})
 
 
 def _embed(cfg, params, tokens):
@@ -266,14 +299,15 @@ def logits_fn(cfg: ModelConfig, params, batch):
     return h @ _lm_head_w(params), caches
 
 
-def cache_len(cfg: ModelConfig, max_seq: int) -> int:
-    """Slots of each attention layer's cache. With `window_kv_cache` a
-    stack position gets a window-sized ring only when every layer stacked
-    there has a window; any global layer keeps all `max_seq` slots. (The
-    reference sizes the ring by the window of the position's first
-    layer, so its global layers of gemma3 get the local layers' ring and
-    decode departs from the forward; ROADMAP §3.)"""
-    windows = [cfg.layer_window(i) for i in range(cfg.num_layers)]
+def cache_len(cfg: ModelConfig, max_seq: int, idx: int = 0) -> int:
+    """Slots of the attention cache at position `idx` of the period. With
+    `window_kv_cache` a position gets a window-sized ring only when every
+    layer stacked there has a window; any global layer keeps all
+    `max_seq` slots. (The reference sizes the ring by the window of the
+    position's first layer, so its global layers of gemma3 get the local
+    layers' ring and decode departs from the forward; ROADMAP §3.)"""
+    K, n = _stack_period(cfg)
+    windows = [cfg.layer_window(p * K + idx) for p in range(n)]
     if cfg.window_kv_cache and None not in windows:
         return min(max_seq, max(windows))
     return max_seq
@@ -281,54 +315,64 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
 
 @torch.inference_mode()
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, device):
-    """Zeroed decode cache, stacked over the layers: {"entries": {"pos0":
-    {"k", "v"} or {"conv", "h"}}, "index": 0-d int32}."""
+    """Zeroed decode cache, stacked over the periods: {"entries":
+    {"pos{i}": {"k", "v"} or {"conv", "h"}, by position i's kind},
+    "index": 0-d int32}."""
     check_supported(cfg)
-    dt, L = dtype_of(cfg), cfg.num_layers
-    if cfg.layer_kind(0) == ATTN:
-        shape = (L, batch_size, cache_len(cfg, max_seq), cfg.num_kv_heads,
-                 cfg.head_dim)
-        entry = {"k": torch.zeros(shape, dtype=dt, device=device),
-                 "v": torch.zeros(shape, dtype=dt, device=device)}
-    else:
-        ch = cfg.d_inner + 2 * cfg.ssm_state
-        entry = {
-            "conv": torch.zeros((L, batch_size, cfg.ssm_conv_width - 1, ch),
-                                dtype=dt, device=device),
-            "h": torch.zeros((L, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
-                              cfg.ssm_state), dtype=torch.float32,
-                             device=device),
-        }
-    return {"entries": {"pos0": entry},
+    dt = dtype_of(cfg)
+    K, n = _stack_period(cfg)
+    entries = {}
+    for i in range(K):
+        if cfg.layer_kind(i) == ATTN:
+            shape = (n, batch_size, cache_len(cfg, max_seq, i),
+                     cfg.num_kv_heads, cfg.head_dim)
+            entries[f"pos{i}"] = {
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+        else:
+            ch = cfg.d_inner + 2 * cfg.ssm_state
+            entries[f"pos{i}"] = {
+                "conv": torch.zeros((n, batch_size, cfg.ssm_conv_width - 1,
+                                     ch), dtype=dt, device=device),
+                "h": torch.zeros((n, batch_size, cfg.ssm_heads,
+                                  cfg.ssm_head_dim, cfg.ssm_state),
+                                 dtype=torch.float32, device=device),
+            }
+    return {"entries": entries,
             "index": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _layer_decode(cfg, p, h, window, index, entry):
-    """One-token step against this layer's cache slice (written in
-    place)."""
-    if cfg.layer_kind(0) == ATTN:
+def _layer_decode(cfg, p, idx, h, window, index, entry):
+    """One-token step of the layer at position `idx` against its cache
+    slice (written in place)."""
+    if cfg.layer_kind(idx) == ATTN:
         a = attention_decode(p["mix"], cfg, rms_norm(h, p["ln1"]),
                              entry["k"], entry["v"], window=window,
                              index=index)[0]
     else:
         a = ssm_decode(p["mix"], cfg, rms_norm(h, p["ln1"]), entry["conv"],
                        entry["h"])[0]
-    return _ffn(cfg, p, h + a)[0]
+    return _ffn(cfg, p, idx, h + a)[0]
 
 
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One decode step. tokens: (B, 1) integer -> (logits (B,1,V), cache):
-    the cache given, its entries written in place, with `index + 1`.
-    Tokens only, as the reference's (a VLM's patches enter by the
-    prefill; an encoder has no decode step)."""
+    the cache given, its entries written in place, with `index + 1`; the
+    layers in the prefill's order (period, then position). Tokens only,
+    as the reference's (a VLM's patches enter by the prefill; an encoder
+    has no decode step)."""
     check_supported(cfg)
-    L, index = cfg.num_layers, cache["index"]
+    K = _stack_period(cfg)[0]
+    index = cache["index"]
     h = _embed(cfg, params, tokens)
     windows = window_array(cfg)
-    for i, (p, e) in enumerate(zip(_unstack(params["blocks"]["pos0"], L),
-                                   _unstack(cache["entries"]["pos0"], L))):
-        h = _layer_decode(cfg, p, h, windows[i], index, e)
+    for period, (layers, ents) in enumerate(zip(
+            _periods(cfg, params["blocks"]),
+            _periods(cfg, cache["entries"]))):
+        for i, (p, e) in enumerate(zip(layers, ents)):
+            h = _layer_decode(cfg, p, i, h, windows[period * K + i], index,
+                              e)
     h = rms_norm(h, params["final_norm"])
     return h @ _lm_head_w(params), {"entries": cache["entries"],
                                     "index": index + 1}

@@ -336,7 +336,8 @@ def _rel(got, want, rows=False):
                                          ("starcoder2-3b", 2),
                                          ("mamba2-130m", 2),
                                          ("mamba2-130m", 24),
-                                         ("dbrx-132b", 2)])
+                                         ("dbrx-132b", 2),
+                                         ("jamba-v0.1-52b", 2)])
 def test_bf16_decode_spread_is_within_the_chip_bound(arch, layers):
     """Where `chip_smoke.py`'s decode bound comes from: in bf16, 24
     teacher-forced tokens through `decode_step` against `logits_fn`
@@ -348,12 +349,16 @@ def test_bf16_decode_spread_is_within_the_chip_bound(arch, layers):
     dbrx's MoE at 2 layers, its decode check's depth on the card, routes
     its 24 tokens alike in both, drop-free: the reduced capacity factor
     is 16) and 0.84-1.05 for Mamba2 (decode's recurrence and conv step
-    round apart from the chunked scan and the full conv); the card's bound,
+    round apart from the chunked scan and the full conv); Jamba's decode
+    check model (`CHECK_OVERRIDES`: attention with an MLP, then an SSM
+    layer with the MoE) has both kinds; the card's bound,
     `DECODE_BF16_K`, is about twice the largest, so these stay below
     two thirds of it."""
-    bound = _chip_smoke().DECODE_BF16_K
+    cs = _chip_smoke()
+    bound = cs.DECODE_BF16_K
     cfg16 = dataclasses.replace(tget(arch).reduced(), num_layers=layers,
-                                dtype="bfloat16", param_dtype="bfloat16")
+                                dtype="bfloat16", param_dtype="bfloat16",
+                                **cs.CHECK_OVERRIDES.get(arch, {}))
     cfg32 = dataclasses.replace(cfg16, dtype="float32",
                                 param_dtype="float32")
     p16 = TM.init_params(cfg16, torch.Generator().manual_seed(0), "cpu")
@@ -364,12 +369,12 @@ def test_bf16_decode_spread_is_within_the_chip_bound(arch, layers):
     cache = TM.init_cache(cfg16, B, 32, "cpu")
     for t in range(24):
         lg, cache = TM.decode_step(cfg16, p16, cache, toks[:, t:t + 1])
-    ent = cache["entries"]["pos0"]
     ratios = {"logits": _rel(lg, l16, True) / _rel(l16, l32, True)}
-    for name in ent:
-        got = ent[name][:, :, :24] if name in ("k", "v") else ent[name]
-        ratios[name] = (_rel(got, c16["pos0"][name])
-                        / _rel(c16["pos0"][name], c32["pos0"][name]))
+    for pos, ent in cache["entries"].items():
+        for name in ent:
+            got = ent[name][:, :, :24] if name in ("k", "v") else ent[name]
+            ratios[pos, name] = (_rel(got, c16[pos][name])
+                                 / _rel(c16[pos][name], c32[pos][name]))
     print(arch, layers, ratios)
     assert all(r <= bound / 1.5 for r in ratios.values()), ratios
 
@@ -384,7 +389,8 @@ def _bf16x3(t):
 @pytest.mark.parametrize("arch,layers", [("gemma3-4b", 34),
                                          ("starcoder2-3b", 30),
                                          ("mamba2-130m", 24),
-                                         ("dbrx-132b", 2)])
+                                         ("dbrx-132b", 2),
+                                         ("jamba-v0.1-52b", 2)])
 def test_fp32_decode_is_within_the_chip_bound(arch, layers, monkeypatch):
     """Where `chip_smoke.py`'s fp32 decode bound comes from: in fp32 at
     full depth (reduced widths), 24 teacher-forced tokens through
@@ -392,12 +398,16 @@ def test_fp32_decode_is_within_the_chip_bound(arch, layers, monkeypatch):
     leaf), with the prefill's SSD inputs rounded as the card's bf16x3
     kernel rounds them. Attention decodes what its prefill computes (0
     here), as does dbrx's MoE, drop-free at 2 layers (its decode check's
-    depth on the card); Mamba2 departs by about 9e-5. The card's bound,
-    `DECODE_FP32_TOL`, is about ten times that, so these stay below half
+    depth on the card); Mamba2 departs by about 9e-5, and Jamba's decode
+    check model (an attention and an SSM layer) by what its SSM layer
+    departs. The card's bound, `DECODE_FP32_TOL` (the SSM's for the
+    hybrid family), is about ten times that, so these stay below half
     of it."""
-    bound = _chip_smoke().DECODE_FP32_TOL
+    cs = _chip_smoke()
+    bound = cs.DECODE_FP32_TOL
     cfg = dataclasses.replace(tget(arch).reduced(), num_layers=layers,
-                              dtype="float32", param_dtype="float32")
+                              dtype="float32", param_dtype="float32",
+                              **cs.CHECK_OVERRIDES.get(arch, {}))
     params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(_tokens(cfg, (B, 24), 11))
     scan = TS.ssd_scan
@@ -409,10 +419,10 @@ def test_fp32_decode_is_within_the_chip_bound(arch, layers, monkeypatch):
     cache = TM.init_cache(cfg, B, 32, "cpu")
     for t in range(24):
         lg, cache = TM.decode_step(cfg, params, cache, toks[:, t:t + 1])
-    ent = cache["entries"]["pos0"]
     dist = {"logits": _rel(lg, l32, True)}
-    for name in ent:
-        got = ent[name][:, :, :24] if name in ("k", "v") else ent[name]
-        dist[name] = _rel(got, c32["pos0"][name])
+    for pos, ent in cache["entries"].items():
+        for name in ent:
+            got = ent[name][:, :, :24] if name in ("k", "v") else ent[name]
+            dist[pos, name] = _rel(got, c32[pos][name])
     print(arch, layers, dist)
     assert all(d <= bound[cfg.family] / 2 for d in dist.values()), dist

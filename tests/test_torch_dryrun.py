@@ -272,22 +272,27 @@ def test_ssd_flop_formula_reaches_the_counter(B, S, H, P, N, chunk):
     assert fc.get_total_flops() == bwd
 
 
-def test_cli_records_not_ported_and_skipped_pairs(tmp_path, capsys):
-    """A family the port lacks is `[not ported]` with check_supported's
-    message (not folded into `[skip]`); a ported pair the reference skips
-    too is `[skip]` (hubert, an encoder, has no decode step); neither is
-    a failure."""
+def test_cli_records_not_ported_and_skipped_pairs(tmp_path, capsys,
+                                                 monkeypatch):
+    """A family the port lacks (a config of an unknown family, since
+    every registered one is ported) is `[not ported]` with
+    check_supported's message (not folded into `[skip]`); a ported pair
+    the reference skips too is `[skip]` (hubert, an encoder, has no
+    decode step); neither is a failure."""
+    odd = dataclasses.replace(get_config("opt-125m"), name="retnet-1b",
+                              family="retention")
+    monkeypatch.setattr(DR, "get_config", lambda a: odd if a == odd.name
+                        else get_config(a))
     out = tmp_path / "rec.jsonl"
-    for arch, shape in (("jamba-v0.1-52b", "train_4k"),
+    for arch, shape in (("retnet-1b", "train_4k"),
                         ("hubert-xlarge", "decode_32k"),
                         ("qwen3-8b", "long_500k")):
         assert DR.main(["--arch", arch, "--shape", shape,
                         "--json", str(out)]) == 0
     text = capsys.readouterr().out
     recs = [json.loads(l) for l in out.read_text().splitlines()]
-    assert ("[not ported] jamba-v0.1-52b x train_4k: jamba-v0.1-52b: "
-            "ported are") in text
-    assert "the hybrid family" in recs[0]["not_ported"]
+    assert "[not ported] retnet-1b x train_4k: retnet-1b: ported are" in text
+    assert "family 'retention' is unknown" in recs[0]["not_ported"]
     assert recs[1] == {"arch": "hubert-xlarge", "shape": "decode_32k",
                        "skipped": "encoder-only architecture has no "
                                   "decode step"}
@@ -299,10 +304,10 @@ def test_cli_records_not_ported_and_skipped_pairs(tmp_path, capsys):
 
 def test_all_pairs_triage_as_the_cli_counts_them():
     """`--all`'s 40 pairs, sorted as `main` sorts them (`triage`, no
-    tracing): 29 records, 7 `[skip]` (hubert's two decode shapes, and
-    long_500k of the five full-attention archs: qwen3, deepseek,
-    phi-3-vision and the MoE archs dbrx and kimi-k2), 4 `[not ported]`
-    (the hybrid jamba)."""
+    tracing): 33 records (jamba's four among them), 7 `[skip]` (hubert's
+    two decode shapes, and long_500k of the five full-attention archs:
+    qwen3, deepseek, phi-3-vision and the MoE archs dbrx and kimi-k2), 0
+    `[not ported]`; a config of an unknown family would be."""
     from repro_torch.configs import ASSIGNED_ARCHS
     kinds = {"record": [], "skip": [], "not ported": []}
     for a in ASSIGNED_ARCHS:
@@ -315,8 +320,13 @@ def test_all_pairs_triage_as_the_cli_counts_them():
             except DR.NotPorted:
                 kinds["not ported"].append((a, s))
     assert {k: len(v) for k, v in kinds.items()} == \
-        {"record": 29, "skip": 7, "not ported": 4}
-    assert {a for a, _ in kinds["not ported"]} == {"jamba-v0.1-52b"}
+        {"record": 33, "skip": 7, "not ported": 0}
+    for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        assert ("jamba-v0.1-52b", s) in kinds["record"]
+    with pytest.raises(DR.NotPorted, match="'retention' is unknown"):
+        DR.triage(dataclasses.replace(get_config("opt-125m"),
+                                      family="retention"),
+                  INPUT_SHAPES["train_4k"])
     assert sorted(kinds["skip"]) == sorted(
         [("hubert-xlarge", "decode_32k"), ("hubert-xlarge", "long_500k"),
          ("qwen3-8b", "long_500k"), ("deepseek-67b", "long_500k"),

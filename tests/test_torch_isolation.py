@@ -91,9 +91,11 @@ def test_serve_without_device_raises_on_a_host_without_cuda(monkeypatch):
         serve.main([])
 
 
-def test_serve_example_runs_on_the_cpu(capsys):
+@pytest.mark.parametrize("extra", [(), ("--arch", "jamba-v0.1-52b")],
+                         ids=["", "jamba"])
+def test_serve_example_runs_on_the_cpu(extra, capsys):
     from repro_torch.examples import serve
-    serve.main(["--device", "cpu"])
+    serve.main(["--device", "cpu", *extra])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("served batch=4: generated 24 tokens/request")
     assert out[1].startswith("sample: [")

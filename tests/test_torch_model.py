@@ -158,14 +158,17 @@ def test_flash_attention_matches_reference():
 
 
 def test_unported_families_say_where_they_wait():
+    import dataclasses
     from repro_torch.configs import get_config as tget
-    # dense (full and sliding-window attention), MoE, SSM, VLM and audio
-    # inputs: ported
+    # dense (full and sliding-window attention), MoE, SSM, hybrid, VLM and
+    # audio inputs: ported
     for name in ("opt-125m", "mamba2-130m", "starcoder2-3b", "gemma3-4b",
                  "phi-3-vision-4.2b", "hubert-xlarge", "dbrx-132b",
-                 "kimi-k2-1t-a32b"):
+                 "kimi-k2-1t-a32b", "jamba-v0.1-52b"):
+        TM.check_supported(tget(name))
         TM.check_supported(tget(name).reduced())
-    for name, what in (("jamba-v0.1-52b", "hybrid"),):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            TM.check_supported(tget(name).reduced())
-        assert what in str(e.value), (name, str(e.value))
+    # a family outside the reference's still raises, naming it
+    odd = dataclasses.replace(tget("opt-125m").reduced(), family="retention")
+    with pytest.raises(NotImplementedError, match="ported are") as e:
+        TM.check_supported(odd)
+    assert "'retention' is unknown" in str(e.value)

@@ -78,14 +78,16 @@ def _train(tmp_path, arch, seq, device_encode, batch=2, backend="reft",
 @pytest.mark.parametrize("device_encode,arch,extra", [
     pytest.param("auto", "opt-125m", (), id="auto"),
     pytest.param("on", "opt-125m", (), id="on"),
-    pytest.param("on", "dbrx-132b", ("--delta",), id="dbrx-132b-delta")])
+    pytest.param("on", "dbrx-132b", ("--delta",), id="dbrx-132b-delta"),
+    pytest.param("on", "jamba-v0.1-52b", ("--delta",), id="jamba-delta")])
 def test_train_recovers_through_both_tiers(device_encode, arch, extra,
                                            tmp_path):
     """opt-125m with the host and the device encode path; reduced
-    dbrx-132b (every layer MoE) under `--delta`: the router's
-    touched-expert mask feeds the dirty provider, which rules every byte
-    dirty (the expert leaves are stacked over the layers), so every
-    flight is a keyframe and no bucket is skipped."""
+    dbrx-132b (every layer MoE) and reduced jamba-v0.1-52b (an SSM layer
+    with an MLP, then attention with the MoE) under `--delta`: the
+    router's touched-expert mask feeds the dirty provider, which rules
+    every byte dirty (the expert leaves are stacked over the layers or
+    periods), so every flight is a keyframe and no bucket is skipped."""
     out = _train(tmp_path, arch, 64, device_encode, extra=extra)
     if extra:
         prov = re.search(r"expert_provider calls=(\d+) touched=\[([^]]*)\] "
