@@ -34,6 +34,7 @@ from repro_torch.api.types import (
 )
 from repro_torch.core.pipeline import step_boundary
 from repro_torch.core.recovery import RecoveryError
+from repro_torch.core.spans import span
 
 
 class CheckpointSession:
@@ -137,6 +138,10 @@ class CheckpointSession:
         {"snapshot": bool, "launched": bool, "persist": Optional[int]}:
         "launched" also holds for a capture that went out in part
         (`Checkpointer.launched`)."""
+        with span("session.after_step"):
+            return self._after_step(state, step, extra_meta)
+
+    def _after_step(self, state: Any, step: int, extra_meta: dict) -> dict:
         # tick the HASC gate: in-flight L1 pumps burst at step boundaries
         # instead of racing the forward/backward pass for host bandwidth
         step_boundary()

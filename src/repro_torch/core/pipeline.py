@@ -70,6 +70,7 @@ import torch
 from repro_torch.analyze.lockgraph import named_condition
 from repro_torch.core.crcutil import crc32_concat
 from repro_torch.core.delta import FlightDelta, merge_ranges, task_dirty
+from repro_torch.core.spans import span
 from repro_torch.core.treebytes import (FlatSpec, dtype_itemsize,
                                         iter_buckets, tensor_u8)
 
@@ -686,16 +687,18 @@ class PipelineFlight:
 
     # ------------------------------------------------------------- L1
     def _get_credit(self):
-        while True:
-            try:
-                t0 = time.perf_counter()
-                buf = self._free.get(timeout=0.5)
-                self._l1_stall += time.perf_counter() - t0
-                return buf
-            except queue.Empty:
-                self._l1_stall += 0.5
-                if self._abort.is_set():
-                    raise RuntimeError("snapshot pipeline aborted") from None
+        with span("reft.l1.stall"):
+            while True:
+                try:
+                    t0 = time.perf_counter()
+                    buf = self._free.get(timeout=0.5)
+                    self._l1_stall += time.perf_counter() - t0
+                    return buf
+                except queue.Empty:
+                    self._l1_stall += 0.5
+                    if self._abort.is_set():
+                        raise RuntimeError(
+                            "snapshot pipeline aborted") from None
 
     def _wait_event(self, ev: threading.Event, what: str) -> None:
         while not ev.wait(0.5):
@@ -769,48 +772,52 @@ class PipelineFlight:
         for w, (i, task) in enumerate(work):
             if self._abort.is_set():
                 raise RuntimeError("snapshot pipeline aborted")
-            t0 = time.perf_counter()
-            fresh = []
-            for _, nxt in work[w:w + window]:      # windowed prefetch
-                spans = [(nxt.leaf_lo, nxt.leaf_hi)]
-                if nxt.kind == 2 and nxt.sources:
-                    # fused parity reads every stripe source range, not
-                    # just the first one the task's leaf span covers —
-                    # prefetch them all or each falls back to a
-                    # synchronous per-leaf device_get mid-read
-                    spans = [_leaf_span(reader.offsets, self.spec, lo, hi)
-                             for lo, hi in nxt.sources]
-                for l0, l1 in spans:
-                    for li in range(l0, l1):
-                        if li not in issued:
-                            issued.add(li)
-                            fresh.append(li)
-            if fresh:
-                reader.fetch(fresh)     # one batched d2h for the window
-            self._l1_read += time.perf_counter() - t0
+            with span("reft.l1.read"):
+                t0 = time.perf_counter()
+                fresh = []
+                for _, nxt in work[w:w + window]:      # windowed prefetch
+                    spans = [(nxt.leaf_lo, nxt.leaf_hi)]
+                    if nxt.kind == 2 and nxt.sources:
+                        # fused parity reads every stripe source range,
+                        # not just the first one the task's leaf span
+                        # covers — prefetch them all or each falls back
+                        # to a synchronous per-leaf device_get mid-read
+                        spans = [_leaf_span(reader.offsets, self.spec, lo,
+                                            hi) for lo, hi in nxt.sources]
+                    for l0, l1 in spans:
+                        for li in range(l0, l1):
+                            if li not in issued:
+                                issued.add(li)
+                                fresh.append(li)
+                if fresh:
+                    reader.fetch(fresh)     # one batched d2h for the window
+                self._l1_read += time.perf_counter() - t0
             if yield_every and w and w % yield_every == 0 \
                     and not self._draining.is_set():
                 GATE.wait_boundary(yield_timeout)  # yield to training
             buf = self._get_credit()
             nb = task.hi - task.lo
-            t0 = time.perf_counter()
-            try:
-                if task.kind == 2 and task.sources:
-                    # host-side fused parity: fold the n-1 stripe source
-                    # ranges so the ring carries ONE pre-encoded block
-                    reader.read(task.sources[0][0], task.sources[0][1],
-                                buf[:nb])
-                    if fold is None:
-                        fold = np.empty(self.cfg.bucket_bytes, np.uint8)
-                    for lo, hi in task.sources[1:]:
-                        reader.read(lo, hi, fold[:nb])
-                        np.bitwise_xor(buf[:nb], fold[:nb], out=buf[:nb])
-                else:
-                    reader.read(task.lo, task.hi, buf[:nb])
-            except BaseException:
-                self._free.put(buf)                # never leak a credit
-                raise
-            self._l1_read += time.perf_counter() - t0
+            with span("reft.l1.read"):
+                t0 = time.perf_counter()
+                try:
+                    if task.kind == 2 and task.sources:
+                        # host-side fused parity: fold the n-1 stripe
+                        # source ranges so the ring carries ONE
+                        # pre-encoded block
+                        reader.read(task.sources[0][0], task.sources[0][1],
+                                    buf[:nb])
+                        if fold is None:
+                            fold = np.empty(self.cfg.bucket_bytes, np.uint8)
+                        for lo, hi in task.sources[1:]:
+                            reader.read(lo, hi, fold[:nb])
+                            np.bitwise_xor(buf[:nb], fold[:nb],
+                                           out=buf[:nb])
+                    else:
+                        reader.read(task.lo, task.hi, buf[:nb])
+                except BaseException:
+                    self._free.put(buf)                # never leak a credit
+                    raise
+                self._l1_read += time.perf_counter() - t0
             # host digests (and the digest-compare skip) run in the L2
             # stager, not here: L1 is the device-read level and stays
             # read-only — the device path keeps CRC on the accelerator
@@ -832,38 +839,41 @@ class PipelineFlight:
         for w, (i, task) in enumerate(work):
             if self._abort.is_set():
                 raise RuntimeError("snapshot pipeline aborted")
-            t0 = time.perf_counter()
-            for x in range(w, min(w + window, len(work))):
-                j, tj = work[x]
-                if j not in pending:       # encode a window ahead; the
-                    pending[j] = enc.encode(  # kernels + d2h run async
-                        tj, want_crc=True if digesting else None,
-                        prewarm_payload=not defer)
-            self._l1_read += time.perf_counter() - t0   # under this loop
+            with span("reft.l1.read"):
+                t0 = time.perf_counter()
+                for x in range(w, min(w + window, len(work))):
+                    j, tj = work[x]
+                    if j not in pending:       # encode a window ahead; the
+                        pending[j] = enc.encode(  # kernels + d2h run async
+                            tj, want_crc=True if digesting else None,
+                            prewarm_payload=not defer)
+                self._l1_read += time.perf_counter() - t0   # under this loop
             if yield_every and w and w % yield_every == 0 \
                     and not self._draining.is_set():
                 GATE.wait_boundary(yield_timeout)
             lanes, crc, nb = pending.pop(i)
-            t0 = time.perf_counter()
-            crc_val = enc.bucket_crc(crc.numpy().view(np.uint32), nb) \
-                if digesting or task.kind == 0 else None
-            if digesting:
-                self._digests[i] = crc_val
-            if defer and delta.prev.get(i) == crc_val:
-                self._skipped += 1         # clean: only the digest d2h'd
+            with span("reft.l1.read"):
+                t0 = time.perf_counter()
+                crc_val = enc.bucket_crc(crc.numpy().view(np.uint32), nb) \
+                    if digesting or task.kind == 0 else None
+                if digesting:
+                    self._digests[i] = crc_val
+                same = defer and delta.prev.get(i) == crc_val
                 self._l1_read += time.perf_counter() - t0
+            if same:
+                self._skipped += 1         # clean: only the digest d2h'd
                 continue
-            self._l1_read += time.perf_counter() - t0
             buf = self._get_credit()       # token: bounds queued buckets
-            t0 = time.perf_counter()
-            try:
-                if defer:                  # dirty after all: copy now
-                    lanes = HostCopy(lanes)
-                payload = lanes.numpy()[:nb]           # d2h (started early)
-            except BaseException:
-                self._free.put(buf)
-                raise
-            self._l1_read += time.perf_counter() - t0
+            with span("reft.l1.read"):
+                t0 = time.perf_counter()
+                try:
+                    if defer:                  # dirty after all: copy now
+                        lanes = HostCopy(lanes)
+                    payload = lanes.numpy()[:nb]       # d2h (started early)
+                except BaseException:
+                    self._free.put(buf)
+                    raise
+                self._l1_read += time.perf_counter() - t0
             self._ready.put((task, buf, payload, nb,
                              crc_val if task.kind == 0 else None, i))
 
@@ -885,45 +895,49 @@ class PipelineFlight:
                 # the predecessor's clean-ack (its stager is done with the
                 # pipe, so the conn is ours alone from here)
                 self._wait_event(prev.done, "predecessor clean-ack")
-            t0 = time.perf_counter()
-            if delta is not None:
-                # confirmed exchange: the SMP seeds the new shard buffer
-                # by copying the base (latest clean) buffer — if the base
-                # rotated away the delta would publish garbage, so a miss
-                # aborts the flight (nothing published)
-                if not self.smp.begin(self.step, base_step=delta.base_step):
-                    raise DeltaBaseMismatch(
-                        f"delta base step {delta.base_step} is not the "
-                        f"SMP's latest clean buffer")
-            else:
-                self.smp.begin(self.step)
-            t_l3 = time.perf_counter() - t0
+            with span("reft.l3.signal"):
+                t0 = time.perf_counter()
+                if delta is not None:
+                    # confirmed exchange: the SMP seeds the new shard
+                    # buffer by copying the base (latest clean) buffer —
+                    # if the base rotated away the delta would publish
+                    # garbage, so a miss aborts the flight (nothing
+                    # published)
+                    if not self.smp.begin(self.step,
+                                          base_step=delta.base_step):
+                        raise DeltaBaseMismatch(
+                            f"delta base step {delta.base_step} is not "
+                            f"the SMP's latest clean buffer")
+                else:
+                    self.smp.begin(self.step)
+                t_l3 = time.perf_counter() - t0
             host_digesting = self.want_digests and self.encoder is None
             while True:
                 item = self._ready.get()
                 if item is _STOP:
                     break
                 task, buf, payload, nb, crc_val, idx = item
-                t0 = time.perf_counter()
-                if host_digesting:
-                    # host digests (and the bit-identical skip) happen at
-                    # this level: the pump hands raw reads over and never
-                    # pays the CRC pass on the device-read path
-                    crc_val = zlib.crc32(payload) & 0xFFFFFFFF
-                    self._digests[idx] = crc_val
-                    if delta is not None and delta.digest \
-                            and delta.prev.get(idx) == crc_val:
-                        self._skipped += 1     # bit-identical: skip send
-                        self._free.put(buf)
-                        t_l2 += time.perf_counter() - t0
-                        continue
-                    if task.kind != 0:
-                        crc_val = None
-                try:
-                    self.smp.send_bucket(task.kind, task.dst, payload)
-                finally:
-                    self._free.put(buf)                # return the credit
-                t_l2 += time.perf_counter() - t0
+                with span("reft.l2.write"):
+                    t0 = time.perf_counter()
+                    if host_digesting:
+                        # host digests (and the bit-identical skip) happen
+                        # at this level: the pump hands raw reads over and
+                        # never pays the CRC pass on the device-read path
+                        crc_val = zlib.crc32(payload) & 0xFFFFFFFF
+                        self._digests[idx] = crc_val
+                        if delta is not None and delta.digest \
+                                and delta.prev.get(idx) == crc_val:
+                            self._skipped += 1   # bit-identical: skip send
+                            self._free.put(buf)
+                            t_l2 += time.perf_counter() - t0
+                            continue
+                        if task.kind != 0:
+                            crc_val = None
+                    try:
+                        self.smp.send_bucket(task.kind, task.dst, payload)
+                    finally:
+                        self._free.put(buf)            # return the credit
+                    t_l2 += time.perf_counter() - t0
                 sent += nb
                 if crc_val is not None:
                     crcs.append((task.dst, nb, crc_val))
@@ -933,38 +947,40 @@ class PipelineFlight:
                 return                                 # buffer stays unseen
             meta = {"spec": self.spec.to_json(), "step": self.step,
                     "extra": self.extra_meta}
-            t0 = time.perf_counter()
-            if self.want_digests:
-                # delta-enabled pipeline: the full-schedule digest table
-                # covers every own-data bucket (fresh for read buckets,
-                # inherited for skipped ones), so the own-region CRC and
-                # the per-stripe table are derived trainer-side even when
-                # only a handful of buckets were re-sent
-                crcs = [(t.dst, t.hi - t.lo, self._digests[i])
-                        for i, t in enumerate(self.schedule) if t.kind == 0]
-            if crcs:
-                # device encode path: per-bucket digests -> one combined
-                # own-region CRC plus the per-stripe table (one digest per
-                # local RAIM5 block; buckets never cross block boundaries,
-                # so grouping by dst // bs folds exactly); the SMP skips
-                # its zlib pass on both
-                crcs.sort()
-                crc_own = crc32_concat((c, nb) for _, nb, c in crcs)
-                lay = self.smp.layout
-                seg = lay.bs if lay.n > 1 else lay.own_bytes
-                per_block: Dict[int, List[Tuple[int, int]]] = {}
-                for dst, nb, c in crcs:
-                    per_block.setdefault(dst // seg, []).append((c, nb))
-                stripes = [crc32_concat(per_block[k])
-                           for k in sorted(per_block)]
-                self.smp.end(self.step, pickle.dumps(meta), crc_own=crc_own,
-                             crc_stripes=stripes)
-            else:
-                self.smp.end(self.step, pickle.dumps(meta), want_crc=True)
-            clean = self.smp.wait_clean()
-            if self.record is not None:
-                self.record.landed_at = time.monotonic()
-            t_l3 += time.perf_counter() - t0
+            with span("reft.l3.signal"):
+                t0 = time.perf_counter()
+                if self.want_digests:
+                    # delta-enabled pipeline: the full-schedule digest table
+                    # covers every own-data bucket (fresh for read buckets,
+                    # inherited for skipped ones), so the own-region CRC and
+                    # the per-stripe table are derived trainer-side even when
+                    # only a handful of buckets were re-sent
+                    crcs = [(t.dst, t.hi - t.lo, self._digests[i])
+                            for i, t in enumerate(self.schedule)
+                            if t.kind == 0]
+                if crcs:
+                    # device encode path: per-bucket digests -> one combined
+                    # own-region CRC plus the per-stripe table (one digest per
+                    # local RAIM5 block; buckets never cross block boundaries,
+                    # so grouping by dst // bs folds exactly); the SMP skips
+                    # its zlib pass on both
+                    crcs.sort()
+                    crc_own = crc32_concat((c, nb) for _, nb, c in crcs)
+                    lay = self.smp.layout
+                    seg = lay.bs if lay.n > 1 else lay.own_bytes
+                    per_block: Dict[int, List[Tuple[int, int]]] = {}
+                    for dst, nb, c in crcs:
+                        per_block.setdefault(dst // seg, []).append((c, nb))
+                    stripes = [crc32_concat(per_block[k])
+                               for k in sorted(per_block)]
+                    self.smp.end(self.step, pickle.dumps(meta),
+                                 crc_own=crc_own, crc_stripes=stripes)
+                else:
+                    self.smp.end(self.step, pickle.dumps(meta), want_crc=True)
+                clean = self.smp.wait_clean()
+                if self.record is not None:
+                    self.record.landed_at = time.monotonic()
+                t_l3 += time.perf_counter() - t0
             self.result = PipelineResult(
                 step=self.step, clean_step=clean, bytes_sent=sent,
                 l1_seconds=self._l1_read, l1_stall_seconds=self._l1_stall,

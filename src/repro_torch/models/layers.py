@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.spans import span
 from repro_torch.core.treebytes import torch_dtype
 from repro_torch.dist.api import vocab_nll
 
@@ -26,11 +27,12 @@ def pdtype_of(cfg) -> torch.dtype:
 
 
 def rms_norm(x, gain, eps: float = 1e-6):
-    dt = x.dtype
-    x = x.float()
-    var = x.square().mean(-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps)
-    return (out * (1.0 + gain.float())).to(dt)
+    with span("model.rms_norm"):
+        dt = x.dtype
+        x = x.float()
+        var = x.square().mean(-1, keepdim=True)
+        out = x * torch.rsqrt(var + eps)
+        return (out * (1.0 + gain.float())).to(dt)
 
 
 def init_rms(d, dtype, device):

@@ -26,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.core.spans import span
 from repro_torch.core.treebytes import leaf_arrays, tree_unflatten
 from repro_torch.dist.api import P, lookup, new_stack, shard
 from repro_torch.models.attention import (
@@ -181,14 +182,16 @@ def _layer(cfg, p, idx, h, positions, window, band):
     """The layer at position `idx` of the period, on the full sequence.
     -> (h, aux (None but on a MoE layer), cache entry): the layer's
     (k, v), or its SSM (conv_state, h_final)."""
-    h = shard(h, P(("pod", "data"), None, None))
-    if cfg.layer_kind(idx) == ATTN:
-        a, entry = attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
-                             window=window, positions=positions, band=band)
-    else:
-        a, entry = ssm_block(p["mix"], cfg, rms_norm(h, p["ln1"]),
-                             chunk=cfg.ssd_chunk)
-    return (*_ffn(cfg, p, idx, h + a), entry)
+    with span("model.block"):
+        h = shard(h, P(("pod", "data"), None, None))
+        if cfg.layer_kind(idx) == ATTN:
+            a, entry = attention(p["mix"], cfg, rms_norm(h, p["ln1"]),
+                                 window=window, positions=positions,
+                                 band=band)
+        else:
+            a, entry = ssm_block(p["mix"], cfg, rms_norm(h, p["ln1"]),
+                                 chunk=cfg.ssd_chunk)
+        return (*_ffn(cfg, p, idx, h + a), entry)
 
 
 def _cache_names(cfg, idx):
@@ -237,6 +240,11 @@ def embed_batch(cfg: ModelConfig, params, batch):
     the patch positions (built from the labels, so it keeps their
     sharding); audio: the frames through `proj_in` (and the batch's own
     mask, if any); text: the tokens' embeddings."""
+    with span("model.embed"):
+        return _embed_batch(cfg, params, batch)
+
+
+def _embed_batch(cfg: ModelConfig, params, batch):
     dt = dtype_of(cfg)
     labels = batch.get("labels")
     if cfg.family == "vlm":
@@ -269,17 +277,18 @@ def forward(cfg: ModelConfig, params, batch, *, collect_cache=False,
     h, aux, caches = _run_blocks(cfg, params, h, collect_cache=collect_cache,
                             remat=remat)
     h = rms_norm(h, params["final_norm"])
-    w_out = _lm_head_w(params)
-    if cfg.chunked_ce:
-        loss = chunked_cross_entropy(h, w_out, labels, cfg.chunked_ce,
-                                     mask)
-    else:
-        logits = shard(h @ w_out, P(("pod", "data"), None, "model"))
-        loss = cross_entropy(logits, labels, mask)
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    else:
-        loss = loss + 0.01 * aux
+    with span("model.loss"):
+        w_out = _lm_head_w(params)
+        if cfg.chunked_ce:
+            loss = chunked_cross_entropy(h, w_out, labels, cfg.chunked_ce,
+                                         mask)
+        else:
+            logits = shard(h @ w_out, P(("pod", "data"), None, "model"))
+            loss = cross_entropy(logits, labels, mask)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        else:
+            loss = loss + 0.01 * aux
     out = {"loss": loss, "aux": aux}
     if collect_cache:
         out["cache"] = caches

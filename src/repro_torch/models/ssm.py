@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.spans import span
 from repro_torch.dist.api import P, reshape, shard, split, zero_pad
 from repro_torch.kernels.ssd_scan import DEFAULT_CHUNK, ssd_scan
 from repro_torch.models.layers import dense_init, init_rms, pdtype_of, rms_norm
@@ -40,19 +41,21 @@ def _split_proj(p, cfg, x):
     # the row-parallel projection's sums reduced, rows kept on the batch
     # axes (no op outside a mesh): DTensor would otherwise scatter them
     # over the sequence, which the later matmuls cannot carry
-    proj = shard(x @ p["in_proj"],
-                 P(("pod", "data"), *((None,) * (x.dim() - 1))))
+    with span("ssm.proj"):
+        proj = shard(x @ p["in_proj"],
+                     P(("pod", "data"), *((None,) * (x.dim() - 1))))
     z, xbc, dt = split(proj, [di, di + 2 * N, H], dim=-1)
     return z, xbc, dt                                    # dt: (..., H)
 
 
 def _conv_full(p, xbc):
     """Causal depthwise conv over the sequence. xbc: (B, S, ch)."""
-    W = p["conv_w"].shape[0]
-    pad = zero_pad(xbc, (0, 0, W - 1, 0))
-    out = sum(pad[:, i:i + xbc.shape[1], :] * p["conv_w"][i]
-              for i in range(W))
-    return F.silu(out + p["conv_b"])
+    with span("ssm.conv"):
+        W = p["conv_w"].shape[0]
+        pad = zero_pad(xbc, (0, 0, W - 1, 0))
+        out = sum(pad[:, i:i + xbc.shape[1], :] * p["conv_w"][i]
+                  for i in range(W))
+        return F.silu(out + p["conv_b"])
 
 
 def _conv_step(p, xbc1, conv_state):
@@ -95,23 +98,29 @@ def ssm_block(p, cfg, x, h0=None, chunk=DEFAULT_CHUNK):
 
     The reference's `use_kernel` flag is gone: `ssd_scan` launches the
     CUDA kernels for tensors on the card and runs its plain version for
-    tensors on the CPU."""
+    tensors on the CPU. Spans: `ssm.glue` around the block, and inside
+    it `ssm.proj`, `ssm.conv`, `ssm.scan` (the SSD core alone) and the
+    gated norm's `model.rms_norm`."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     B, S, D = x.shape
-    z, xbc, dt = _split_proj(p, cfg, x)
-    conv_state = xbc[:, -(cfg.ssm_conv_width - 1):, :]   # for decode handoff
-    xbc = _conv_full(p, xbc)
-    xs, Bm, Cm = split(xbc, [di, N, N], dim=-1)
-    xs = reshape(xs, B, S, H, P)
-    a, u = _gates(p, cfg, dt, xs)
-    f32 = lambda t: t.to(torch.float32).contiguous()     # noqa: E731
-    y, h_final = ssd_scan(f32(u), f32(a), f32(Bm), f32(Cm), h0=h0,
-                          chunk=chunk)
-    y = y + p["D_skip"][None, None, :, None] * xs.float()
-    y = reshape(y, B, S, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"])
-    out = y @ p["out_proj"]
-    return out, (conv_state.to(x.dtype), h_final)
+    with span("ssm.glue"):
+        z, xbc, dt = _split_proj(p, cfg, x)
+        conv_state = xbc[:, -(cfg.ssm_conv_width - 1):, :]   # decode handoff
+        xbc = _conv_full(p, xbc)
+        xs, Bm, Cm = split(xbc, [di, N, N], dim=-1)
+        xs = reshape(xs, B, S, H, P)
+        a, u = _gates(p, cfg, dt, xs)
+        f32 = lambda t: t.to(torch.float32).contiguous()     # noqa: E731
+        scan_in = [f32(t) for t in (u, a, Bm, Cm)]
+        with span("ssm.scan"):
+            y, h_final = ssd_scan(*scan_in, h0=h0, chunk=chunk)
+        del scan_in
+        y = y + p["D_skip"][None, None, :, None] * xs.float()
+        y = reshape(y, B, S, di).to(x.dtype)
+        y = rms_norm(y * F.silu(z), p["gate_norm"])
+        with span("ssm.proj"):
+            out = y @ p["out_proj"]
+        return out, (conv_state.to(x.dtype), h_final)
 
 
 def ssm_decode(p, cfg, x, conv_state, h):

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.core.treebytes import (leaf_arrays, torch_dtype,
                                         tree_map, tree_unflatten)
 
@@ -45,6 +46,11 @@ def global_norm(tree):
 
 def adam_update(cfg: AdamConfig, grads, opt_state, params):
     """-> (new params, new opt_state, grad norm), all new tensors."""
+    with span("optim.adam"):
+        return _adam_update(cfg, grads, opt_state, params)
+
+
+def _adam_update(cfg: AdamConfig, grads, opt_state, params):
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.spans import span
 from repro_torch.core.treebytes import leaf_arrays, tree_map, tree_unflatten
 from repro_torch.models import model as M
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
@@ -93,7 +94,9 @@ def _value_and_grad(cfg, params, batch):
     """-> (loss, the gradient of each leaf of `params`, in leaf order)."""
     leaves = [p.detach().requires_grad_(True) for p in leaf_arrays(params)]
     loss, _ = M.forward(cfg, tree_unflatten(params, leaves), batch)
-    return loss.detach(), list(torch.autograd.grad(loss, leaves))
+    with span("train.backward"):
+        grads = list(torch.autograd.grad(loss, leaves))
+    return loss.detach(), grads
 
 
 def _accumulated_grads(cfg, params, batch, microbatches: int):
@@ -153,18 +156,21 @@ def make_train_step(cfg: ModelConfig, opt: AdamConfig | None = None,
     opt = opt if opt is not None else AdamConfig()
 
     def train_step(state: dict, batch: dict) -> tuple:
-        new_params, new_opt, metrics = apply_step(cfg, opt, state, batch,
-                                                  microbatches)
-        with torch.no_grad():
-            step = state["step"]
-            rng = fold_in(state["rng"].cpu().numpy(), int(step))
-            new_state = {
-                "params": new_params,
-                "opt_state": new_opt,
-                "step": step + 1,
-                "rng": torch.from_numpy(rng).to(step.device),
-            }
-        return new_state, metrics
+        with span("train.step"):
+            new_params, new_opt, metrics = apply_step(cfg, opt, state, batch,
+                                                      microbatches)
+            with torch.no_grad():
+                step = state["step"]
+                with span("train.rng_fold"):        # the step's host sync
+                    rng = torch.from_numpy(fold_in(
+                        state["rng"].cpu().numpy(), int(step))).to(step.device)
+                new_state = {
+                    "params": new_params,
+                    "opt_state": new_opt,
+                    "step": step + 1,
+                    "rng": rng,
+                }
+            return new_state, metrics
 
     return train_step
 
